@@ -1,0 +1,24 @@
+"""bicubic_interpolation_model_tpu_torch — the PyTorch/CUDA port of
+``bicubic_interpolation_model_tpu`` for NVIDIA Hopper (H100, sm_90a).
+
+The JAX package stays the reference; this package re-implements its paths
+in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
+kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
+use). It imports nothing of the JAX package.
+
+Ported so far (the learned-SR serving path):
+
+train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
+models      WeightPredictor, PixelShuffleUpsample, learned SR inference
+ops         offsets / GT weights / apply-weights, the fused packed tail
+            (CUDA kernel A), the planar→RGBA32 interleave (CUDA kernel B)
+evaluation  checkpoint loading by ``meta.json``
+serving     ModelUpscaler
+runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``
+
+Entry points take ``device=`` and default to ``"cuda"``; with no card they
+raise unless the caller asks for ``device="cpu"``. Functions that take
+tensors run where their tensors lie.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,178 @@
+"""Fused packed tail of the WeightPredictor forward (CUDA kernel A).
+
+From the conv_in/conv_res features, one pass computes the phase-packed
+merged map (upsample + per-phase offset constant + sigmoid attention gate),
+the phase-decomposed 3x3 ``conv_out``, tanh, the 16-tap apply over each
+LR 4x4 neighbourhood, round-half-even and u8 channel packing. The merged map
+(363 MB in f32 at a 348x510 frame) never reaches device memory.
+
+Counterpart of ``bicubic_interpolation_model_tpu/ops/pallas_packed_tail.py``
+(``packed_tail_fused``); the kernel is ``csrc/packed_tail.cu``. Its plain
+PyTorch version, :func:`packed_tail_fused_reference`, is the graph chain
+``_packed_merged_map`` + ``_packed_phase_tail`` + round + pack of
+``models/inference``.
+
+Output layouts: ``"planar"`` is the kernel's ``[S, h*S, w]`` uint32 (column
+phase planar, row phases interleaved, channel bytes little-endian; unpadded);
+``"hwc"`` is uint8 ``[h*S, w*S, c]``; ``"hwc32"`` the RGBA32 word array
+``[h*S, w*S]`` through kernel B (:mod:`.interleave`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..runtime import build
+from .interleave import interleave_planar_u32
+from .planar import pack_rgba32, unpack_planar
+
+_F_IN = 32              # the kernel's conv feature width (WeightPredictor)
+_N_OUT = 16             # conv_out channels = predicted weights
+
+
+def packed_tail_supported(scale: int, twof: int, c: int) -> bool:
+    """The packed tail covers the WeightPredictor family: S*2F == 128
+    (S=4, 2F=32) and channels that pack into one u32 word (c <= 4)."""
+    return int(scale) * twof == 128 and 1 <= c <= 4
+
+
+def packed_tail_fused_reference(y, lr_f32, kout, bout, kup, ubias, offs,
+                                att_w, att_b, *, scale: int = 4,
+                                opaque_alpha: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: [B, h, w, F] features and
+    [B, h, w, c] pixels → [B, S, h*S, w] planar uint32.
+
+    The graph chain on the flat merged-map matrices built from the same
+    operands. f32 features take it as it is. bf16 features compute in f32
+    on bf16-rounded operands and round the merged-map stages where the
+    kernel does (as the TPU kernel: bf16 operands, f32 accumulation)."""
+    from ..models.inference import (_flat_mats, _merged_map_from_mats,
+                                    _packed_phase_tail)
+    from .learned import _apply_round, _edge_pad_chw
+
+    s = int(scale)
+    bsz, h, w, _ = y.shape
+    c = lr_f32.shape[-1]
+    ops = [t.float() for t in (kup, ubias, offs, att_w, att_b)]
+    rq = None
+    if y.dtype == torch.bfloat16:
+        rq = lambda t: t.to(torch.bfloat16).float()
+        y, kout = y.float(), rq(kout.float())
+        ops[0], ops[3] = rq(ops[0]), rq(ops[3])
+    m = _merged_map_from_mats(y, *_flat_mats(*ops), s, rq=rq)
+    mp = torch.nn.functional.pad(m, (0, 0, 0, 0, 0, 0, 1, 1, 1, 1))
+    out = _packed_phase_tail(mp, _edge_pad_chw(lr_f32), kout, bout, s, c, h,
+                             w, opaque_alpha=opaque_alpha and c == 4)
+    words = pack_rgba32(_apply_round(out).to(torch.uint8))   # [B, hS, wS]
+    return words.reshape(bsz, h * s, w, s).permute(0, 3, 1, 2).contiguous()
+
+
+def _check(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b, s):
+    if y.dim() != 4 or lr_f32.dim() != 4 or y.shape[:3] != lr_f32.shape[:3]:
+        raise ValueError("packed_tail_fused expects y [B,h,w,F] and lr "
+                         f"[B,h,w,c]; got {tuple(y.shape)}, "
+                         f"{tuple(lr_f32.shape)}")
+    twof = 2 * (kup.shape[-1] // (s * s))
+    if not packed_tail_supported(s, twof, lr_f32.shape[-1]):
+        raise ValueError(f"packed tail needs S*2F==128, c<=4; got S={s}, "
+                         f"2F={twof}, c={lr_f32.shape[-1]}")
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"features must be float32 or bfloat16, got "
+                         f"{y.dtype}")
+    shapes = {"y": (y, (y.shape[0], y.shape[1], y.shape[2], _F_IN)),
+              "kout": (kout, (3, 3, twof, _N_OUT)), "bout": (bout, (_N_OUT,)),
+              "kup": (kup, (_F_IN, s * s * _N_OUT)),
+              "ubias": (ubias, (_N_OUT,)), "offs": (offs, (s * s, _N_OUT)),
+              "att_w": (att_w, (_N_OUT,)), "att_b": (att_b, (1,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    devs = {t.device for t in (y, lr_f32, kout, bout, kup, ubias, offs,
+                               att_w, att_b)}
+    if len(devs) != 1:
+        raise ValueError(f"packed_tail_fused inputs on several devices: "
+                         f"{devs}")
+
+
+def _launch(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b, s,
+            opaque_alpha):
+    bsz, h, w, _ = y.shape
+    c = lr_f32.shape[-1]
+    bf16 = y.dtype == torch.bfloat16
+    # the kernel reads f32 parameters; in bf16 mode the matmul operands
+    # arrive rounded to bf16, as the TPU kernel casts them
+    rnd = ((lambda t: t.to(torch.bfloat16).float()) if bf16
+           else (lambda t: t))
+    params = [rnd(kout.float()).contiguous(), bout.float().contiguous(),
+              rnd(kup.float()).contiguous(), ubias.float().contiguous(),
+              rnd(offs.float()).contiguous(), rnd(att_w.float()).contiguous(),
+              att_b.float().contiguous()]
+    y = y.contiguous()
+    lr = lr_f32.float().contiguous()
+    out = torch.empty((bsz, s, h * s, w), dtype=torch.uint32, device=y.device)
+    if out.numel():
+        lib = build.library()
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.bim_packed_tail_fused(
+                y.data_ptr(), int(bf16), lr.data_ptr(),
+                *[t.data_ptr() for t in params], out.data_ptr(),
+                bsz, h, w, c, int(opaque_alpha), stream)
+        build.check(rc, "packed_tail_fused")
+        packed_tail_fused.launches += 1
+    return out
+
+
+def packed_tail_fused(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b,
+                      *,
+                      scale: int = 4, layout: str = "hwc",
+                      opaque_alpha: bool = False):
+    """Fused-upstream packed tail: conv features in, u8 pixels out.
+
+    y:      [h, w, 32] (or [B, h, w, 32]) conv_in/conv_res output, float32
+            or bfloat16 (bf16 rounds the merged-map stages like the TPU
+            kernel; accumulation is f32)
+    lr_f32: [h, w, c] (or [B, h, w, c]) LR pixels as float (0..255), c <= 4
+    kout:   [3, 3, 32, 16] conv_out kernel;  bout: [16] bias
+    kup, ubias, offs, att_w, att_b: the merged map's operands of
+            ``models.inference._tail_operands`` (upsample kernel [32, 256]
+            and bias [16], per-phase offset constants [16, 16], attention
+            vector [16] and bias [1]); the JAX kernel takes them as the
+            flat matrices of ``_merged_map_mats``
+    layout: "hwc" (uint8 [.., h*S, w*S, c]), "hwc32" (uint32 RGBA32 words
+            [.., h*S, w*S]) or "planar" (uint32 [.., S, h*S, w]).
+
+    On CUDA tensors this launches the kernel (or raises); on CPU tensors it
+    runs :func:`packed_tail_fused_reference`.
+    """
+    if layout not in ("hwc", "hwc32", "planar"):
+        raise ValueError(f"unknown layout {layout!r}")
+    s = int(scale)
+    single = y.dim() == 3
+    if single:
+        y, lr_f32 = y[None], lr_f32[None]
+    args = (y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b)
+    _check(*args, s)
+    if y.device.type == "cpu":
+        planar = packed_tail_fused_reference(*args, scale=s,
+                                             opaque_alpha=opaque_alpha)
+    elif y.device.type == "cuda":
+        planar = _launch(*args, s, opaque_alpha)
+    else:
+        raise ValueError(f"unsupported device {y.device}")
+    _, h, w, c = lr_f32.shape
+    if layout == "planar":
+        out = planar
+    elif layout == "hwc32":
+        if c != 4:
+            raise ValueError("layout='hwc32' needs c == 4")
+        if single:
+            return interleave_planar_u32(planar[0])
+        out = torch.stack([interleave_planar_u32(f) for f in planar])
+    else:
+        out = unpack_planar(planar, h, w, s, c)
+    return out[0] if single else out
+
+
+packed_tail_fused.launches = 0

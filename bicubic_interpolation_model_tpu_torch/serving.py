@@ -1,0 +1,157 @@
+"""Serving API: the learned upscaler behind a reusable interface
+(counterpart of ``bicubic_interpolation_model_tpu/serving.py``; the
+classical ``Upscaler`` waits for the next slice).
+
+:class:`ModelUpscaler` returns host uint8 HWC arrays; ``fetch=False`` keeps
+the device tensor for chaining into other on-device work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from .runtime.device import resolve_device
+
+
+def _fetch(out):
+    """Materialize a serving result tensor on the host as HWC uint8.
+    RGBA32 words (2-D uint32) are fetched and byte-viewed as HWC; anything
+    else is a plain copy to numpy."""
+    a = out.cpu().numpy()
+    if a.dtype == np.uint32 and a.ndim == 2:
+        from .ops.interleave import rgba32_to_hwc_np
+        return rgba32_to_hwc_np(a, a.shape[0], a.shape[1])
+    return a
+
+
+def _stream_grouped(frames, single, batched, group_size, fetch_single):
+    """Group consecutive SAME-SHAPE frames up to ``group_size(img)`` per
+    launch, keep one dispatch in flight (yield frame i-1 while i computes),
+    and preserve output order."""
+    def dispatch(group):
+        if len(group) == 1:
+            return (single(group[0]), 1)
+        return (batched(np.stack(group)), len(group))
+
+    def emit(out, n):
+        if n == 1:
+            yield fetch_single(out)
+            return
+        arr = out.cpu().numpy()            # [B, H', W', C] device batch
+        for i in range(n):
+            yield arr[i]
+
+    pending = None
+    group: list[np.ndarray] = []
+    for frame in frames:
+        img = np.asarray(frame)
+        limit = group_size(img)
+        if group and (img.shape != group[0].shape or len(group) >= limit):
+            out = dispatch(group)
+            group = []
+            if pending is not None:
+                yield from emit(*pending)
+            pending = out
+        group.append(img)
+        if len(group) >= limit:
+            out = dispatch(group)
+            group = []
+            if pending is not None:
+                yield from emit(*pending)
+            pending = out
+    if group:
+        out = dispatch(group)
+        if pending is not None:
+            yield from emit(*pending)
+        pending = out
+    if pending is not None:
+        yield from emit(*pending)
+
+
+@dataclasses.dataclass
+class ModelUpscaler:
+    """Learned SR behind the serving interface, on a native WeightPredictor
+    checkpoint directory. ``device`` defaults to the card; without one it
+    raises unless given ``device="cpu"``."""
+
+    model_dir: str
+    scale: int = 4
+    convention: str = "train"
+    #: strict mode — the canonical fused f32 program instead of the
+    #: phase-packed path
+    exact: bool = False
+    #: promise that every frame's alpha channel is a constant 255: the
+    #: fused tail then computes alpha as round(255*sum(w)) instead of the
+    #: 16-tap sum (±1 u8 LSB on alpha only). Explicit opt-in so per-frame,
+    #: batch and stream entry points agree.
+    opaque_alpha: bool = False
+    device: str = "cuda"
+
+    def __post_init__(self):
+        from .evaluation.model_analysis import _load_model_any
+        self._device = resolve_device(self.device)
+        self.model, self.params = _load_model_any(self.model_dir,
+                                                  device=self._device)
+        # the fused tail's operands, built once per checkpoint
+        from .models.inference import _tail_operands, _tree
+        with torch.no_grad():
+            self._tail_operands = _tail_operands(
+                _tree(self.params), self.scale, self.convention)
+
+    def _kw(self):
+        return dict(scale=self.scale, convention=self.convention,
+                    exact=self.exact, opaque_alpha=self.opaque_alpha,
+                    tail_operands=self._tail_operands)
+
+    def __call__(self, lr_u8, fetch: bool = True):
+        """One [H, W, C] uint8 frame (numpy or tensor).
+
+        ``fetch=True`` returns a host HWC uint8 array. ``fetch=False``
+        returns the device tensor: for RGBA frames on the card that is the
+        RGBA32 word array, uint32 [H*S, W*S], whose little-endian bytes are
+        the HWC frame (pass it to :func:`_fetch` or view the bytes
+        yourself); otherwise uint8 [H*S, W*S, C].
+        """
+        from .models.inference import super_resolve
+        lr = torch.as_tensor(lr_u8).to(self._device)
+        # RGBA frames on the card go out as RGBA32 words through the
+        # interleave kernel; the channel count comes from the shape
+        use32 = self._device.type == "cuda" and lr.shape[-1] == 4
+        out = super_resolve(self.model, self.params, lr,
+                            layout="hwc32" if use32 else "hwc", **self._kw())
+        return _fetch(out) if fetch else out
+
+    def batch(self, lrs_u8, fetch: bool = True):
+        """[B, H, W, C] same-size frames in one launch (the fused tail
+        kernel's leading grid dimension); uint8 [B, H*S, W*S, C]."""
+        from .models.inference import super_resolve_batch
+        lrs = torch.as_tensor(lrs_u8).to(self._device)
+        out = super_resolve_batch(self.model, self.params, lrs, **self._kw())
+        return out.cpu().numpy() if fetch else out
+
+    #: below this LR pixel count, stream() groups frames
+    MICROBATCH_THRESHOLD_PX = 256 * 256
+
+    def stream(self, frames: Iterable[np.ndarray],
+               microbatch="auto") -> Iterator[np.ndarray]:
+        """Per-frame host results with dispatch/fetch overlap.
+        ``microbatch`` groups consecutive same-shape frames below 256² into
+        one launch (~0.25 MPix per dispatch); an int forces that group
+        size, None disables grouping."""
+        def group_size(img):
+            if microbatch is None:
+                return 1
+            if isinstance(microbatch, int):
+                return max(1, microbatch)
+            px = img.shape[0] * img.shape[1]
+            if px >= self.MICROBATCH_THRESHOLD_PX:
+                return 1
+            return max(1, int(round(2 ** 18 / px)))
+
+        yield from _stream_grouped(
+            frames, lambda img: self(img, fetch=False),
+            lambda g: self.batch(g, fetch=False), group_size, _fetch)

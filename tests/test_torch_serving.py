@@ -1,0 +1,102 @@
+"""The port's ModelUpscaler (bicubic_interpolation_model_tpu_torch/
+serving.py) on the CPU, the port's device rule, and its import hygiene.
+
+Tolerance: every serving entry point returns bytes equal to
+``super_resolve`` on the same frame (one program, one device)."""
+
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from bicubic_interpolation_model_tpu_torch.models.inference import (
+    super_resolve)
+from bicubic_interpolation_model_tpu_torch.serving import (
+    ModelUpscaler, _fetch)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CKPT = ROOT / "model" / "wp-1e-3-120"
+
+
+@pytest.fixture(scope="module")
+def up():
+    return ModelUpscaler(str(CKPT), device="cpu")
+
+
+def _frames(n, h=12, w=16, c=4, seed=0):
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, 256, (n, h, w, c), dtype=np.uint8)
+    if c == 4:
+        f[..., 3] = 255
+    return f
+
+
+def test_call_batch_stream_agree_with_super_resolve(up):
+    frames = _frames(3)
+    ref = [super_resolve(up.model, up.params, f, convention="train").numpy()
+           for f in frames]
+    one = up(frames[0])
+    assert isinstance(one, np.ndarray) and one.dtype == np.uint8
+    assert np.array_equal(one, ref[0])
+    dev = up(frames[1], fetch=False)
+    assert isinstance(dev, torch.Tensor) and np.array_equal(dev.numpy(),
+                                                            ref[1])
+    b = up.batch(frames)
+    assert b.shape == (3, 48, 64, 4)
+    for i in range(3):
+        assert np.array_equal(b[i], ref[i])
+    for microbatch in ("auto", None, 2):
+        out = list(up.stream(iter(frames), microbatch=microbatch))
+        assert len(out) == 3
+        for i in range(3):
+            assert np.array_equal(out[i], ref[i])
+
+
+def test_stream_keeps_order_across_shapes(up):
+    a, b = _frames(2, 12, 16, seed=1), _frames(1, 8, 8, seed=2)
+    seq = [a[0], b[0], a[1]]
+    out = list(up.stream(iter(seq)))
+    assert [o.shape for o in out] == [(48, 64, 4), (32, 32, 4), (48, 64, 4)]
+    assert np.array_equal(out[1], up(b[0]))
+
+
+def test_fetch_views_rgba32_words_as_hwc():
+    rng = np.random.default_rng(3)
+    hwc = rng.integers(0, 256, (5, 6, 4), dtype=np.uint8)
+    words = torch.from_numpy(hwc.copy()).view(torch.uint32)[..., 0]
+    assert np.array_equal(_fetch(words), hwc)
+    assert np.array_equal(_fetch(torch.from_numpy(hwc)), hwc)
+
+
+def test_needs_a_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelUpscaler(str(CKPT))
+
+
+def test_port_imports_nothing_of_jax():
+    """Importing every module of the port leaves jax, flax, msgpack and the
+    JAX package out of sys.modules (names matched exactly: the port's own
+    package shares the JAX package's prefix)."""
+    mods = []
+    for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
+            "*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__"
+                             else parts))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "banned = ('jax', 'flax', 'msgpack', "
+        "'bicubic_interpolation_model_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 15
