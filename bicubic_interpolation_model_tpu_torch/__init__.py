@@ -6,14 +6,19 @@ in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
 kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
 use). It imports nothing of the JAX package.
 
-Ported so far (the learned-SR serving path):
+Ported so far (learned-SR serving and classical resize serving):
 
+core        interpolation kernels and axis plans (NumPy, float64, host)
 train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
 models      WeightPredictor, PixelShuffleUpsample, learned SR inference
 ops         offsets / GT weights / apply-weights, the fused packed tail
-            (CUDA kernel A), the planar→RGBA32 interleave (CUDA kernel B)
+            (CUDA kernel A), the planar→RGBA32 interleave (CUDA kernel B);
+            resize (gather / matmul / phase and the dispatch), the
+            plan-driven resize at any rational scale (CUDA kernel C,
+            ``ops/mxu``), the phase-FMA resize at integer scales (CUDA
+            kernel D, ``ops/phase``)
 evaluation  checkpoint loading by ``meta.json``
-serving     ModelUpscaler
+serving     ModelUpscaler, Upscaler
 runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``
 
 Entry points take ``device=`` and default to ``"cuda"``; with no card they

@@ -33,6 +33,10 @@ _SIGNATURES = {
     "bim_packed_tail_fused": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
     "bim_interleave_planar_u32": [_P, _P, _I, _I, _I, _P],
+    "bim_resize_mxu": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bim_resize_phase": [_P, _I, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -58,7 +62,7 @@ def sources() -> list[pathlib.Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):      # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()

@@ -1,9 +1,14 @@
-"""Serving API: the learned upscaler behind a reusable interface
-(counterpart of ``bicubic_interpolation_model_tpu/serving.py``; the
-classical ``Upscaler`` waits for the next slice).
+"""Serving API: reusable upscalers (counterpart of
+``bicubic_interpolation_model_tpu/serving.py``).
 
-:class:`ModelUpscaler` returns host uint8 HWC arrays; ``fetch=False`` keeps
-the device tensor for chaining into other on-device work.
+- :class:`Upscaler` — the classical resamplers (nearest, bilinear, bicubic,
+  Lanczos) at integer and rational scales, batch-aware (the batch rides the
+  kernels' ``blockIdx.z``), with a :meth:`~Upscaler.stream` that keeps one
+  dispatch in flight while the previous frame is fetched.
+- :class:`ModelUpscaler` — the learned pipeline behind the same interface.
+
+Both return host uint8 HWC arrays; ``fetch=False`` keeps the device tensor
+for chaining into other on-device work.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from .runtime.device import resolve_device
 
 
 def _fetch(out):
-    """Materialize a serving result tensor on the host as HWC uint8.
+    """Materialize a serving result on the host as HWC uint8.
     RGBA32 words (2-D uint32) are fetched and byte-viewed as HWC; anything
     else is a plain copy to numpy."""
     a = out.cpu().numpy()
@@ -70,6 +75,93 @@ def _stream_grouped(frames, single, batched, group_size, fetch_single):
         pending = out
     if pending is not None:
         yield from emit(*pending)
+
+
+@dataclasses.dataclass
+class Upscaler:
+    """Classical-kernel upscaler. ``device`` defaults to the card; without
+    one it raises unless given ``device="cpu"``.
+
+    Every entry point hands its frames to ``ops/resize``, which owns the
+    routing: on a CUDA device kernel C (``ops/mxu``) for whatever that
+    kernel takes, the plain graph only for what no kernel takes. ``impl``
+    takes the JAX package's names (``auto``, ``gather``, ``matmul``,
+    ``phase``, ``pallas_mxu``, ``pallas_phase``); the two ``pallas_*`` names
+    force a kernel's route (its plain version on the CPU).
+
+    ``bucket``: in the JAX package, frame extents round up to multiples of
+    this many LR pixels so one compiled program serves a bucket of sizes,
+    bit-exactly. A CUDA kernel takes its extents at run time, so there is
+    no program cache to protect: the argument is accepted and changes
+    nothing, which keeps the reference's contract (bucketed bytes equal
+    unbucketed bytes) by construction. Per-size plan arrays are cached
+    device-resident on this instance, so a steady stream uploads only its
+    frames."""
+
+    scale: float = 4
+    method: str = "bicubic"
+    impl: str = "auto"
+    a: float = -0.5
+    bucket: int | None = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.method == "adaptive":
+            raise NotImplementedError(
+                "method='adaptive' (ops/adaptive.py and the Pallas kernel "
+                "of ops/pallas_adaptive.py) is not ported yet: ROADMAP.md "
+                "queue A item 4 and queue B item 6")
+        self._device = resolve_device(self.device)
+        self._weight_cache: dict = {}
+
+    def _kw(self):
+        return dict(impl=self.impl, a=self.a, device=self._device,
+                    weight_cache=self._weight_cache)
+
+    def __call__(self, img_u8, fetch: bool = True):
+        """One [H, W(, C)] frame (numpy or tensor). ``fetch=True`` returns
+        a host HWC uint8 array; ``fetch=False`` the device tensor."""
+        from .ops.resize import resize
+        out = resize(img_u8, self.scale, self.method, **self._kw())
+        return _fetch(out) if fetch else out
+
+    def batch(self, imgs_u8, fetch: bool = True):
+        """[B, H, W(, C)] same-size images in one kernel launch."""
+        from .ops.resize import resize_batch
+        out = resize_batch(imgs_u8, self.scale, self.method, **self._kw())
+        return _fetch(out) if fetch else out
+
+    #: the JAX package's auto-microbatch policy value, kept so that both
+    #: packages group the same frames (grouping changes launches, never
+    #: bytes): "auto" groups only frames at or below 128x128 LR pixels. It
+    #: was derived from a TPU latency curve and is not measured on a GPU
+    #: here; chip_smoke.py times 128x128 frames grouped and single, and
+    #: PERF.md says what it finds.
+    MICROBATCH_THRESHOLD_PX = 128 * 128 + 1
+
+    def stream(self, frames: Iterable[np.ndarray],
+               microbatch: int | str | None = "auto"
+               ) -> Iterator[np.ndarray]:
+        """Per-frame host results in order: dispatch frame i, then fetch
+        frame i-1. ``microbatch``: consecutive SAME-SHAPE frames under
+        ``MICROBATCH_THRESHOLD_PX`` are grouped into one kernel launch;
+        "auto" sizes groups to ~1 MPix, an int forces that group size,
+        None disables grouping. On a CUDA device grouped values are
+        bit-identical to per-frame dispatch (the batch is a grid
+        dimension); the plain versions hold the ±1 u8 LSB contract."""
+        def group_size(img):
+            if microbatch is None:
+                return 1
+            if isinstance(microbatch, int):
+                return max(1, microbatch)
+            px = img.shape[0] * img.shape[1]
+            if px >= self.MICROBATCH_THRESHOLD_PX:
+                return 1
+            return max(1, int(round(2 ** 20 / px)))
+
+        yield from _stream_grouped(
+            frames, lambda img: self(img, fetch=False),
+            lambda g: self.batch(g, fetch=False), group_size, _fetch)
 
 
 @dataclasses.dataclass

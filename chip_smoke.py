@@ -6,8 +6,9 @@ Builds the hand-written CUDA kernels from
 ``bicubic_interpolation_model_tpu_torch/csrc``, holds each against its plain
 PyTorch version on the card, serves frames through the port's
 ``ModelUpscaler`` (learned SR on the committed WeightPredictor checkpoints
-at 348x510 -> 4x RGBA), checks launch counts and outputs, and times the
-kernels, their plain versions and the served frame with CUDA events.
+at 348x510 -> 4x RGBA) and through its classical ``Upscaler`` (1080x1920
+RGBA -> 4x, 2.5x and the forced phase route), checks launch counts and
+outputs, and times the kernels, their plain versions and the served frames.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -33,6 +34,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GEOMETRIES = [(24, 40, 4), (19, 37, 4), (13, 9, 3), (8, 128, 1),
               (348, 510, 4)]
 FRAME = (348, 510)                  # LR frame of the 0020 image, 4x -> 1392x2040
+HD = (1080, 1920)                   # classical resize frame, 4x -> 4320x7680
+METHODS = ("nearest", "bilinear", "bicubic", "lanczos")
+SMALL = ((23, 37), (40, 64), (13, 9))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 
@@ -80,7 +84,8 @@ def rotating(fn, inputs):
 def device_ms(fn, n=20, warmup=3):
     """Device time per call: the summed durations of the kernels and copies
     that ``n`` calls put on the card, from a torch.profiler trace (host
-    launch cost excluded). None if the trace holds no device events."""
+    launch cost excluded). Raises if the trace holds no device time: a
+    host clock's reading is never printed under a device time's name."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -92,9 +97,10 @@ def device_ms(fn, n=20, warmup=3):
         torch.cuda.synchronize()
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        return None
-    return sum(e.time_range.end - e.time_range.start for e in dev) / 1e3 / n
+    total = sum(e.time_range.end - e.time_range.start for e in dev)
+    if total <= 0:
+        raise RuntimeError("the profiler's trace holds no device time")
+    return total / 1e3 / n
 
 
 def diff_u8(a, b):
@@ -147,10 +153,120 @@ def tail_bound(h, w, c, y_bytes):
                                  else "operations"), nbytes, flops
 
 
-def profile_served_frames(up, frame, n):
+def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
+    """Least time of a separable resize [b, h, w, c] -> [b, ho, wo, c]:
+    bytes (input read once, output written once) over HBM rate, useful f32
+    FLOPs (a multiply-add per tap: the row pass over ho x w, the column
+    pass over ho x wo) over the f32 peak."""
+    nbytes = b * c * in_bytes * (h * w + ho * wo)
+    flops = 2 * taps * b * c * (ho * w + ho * wo)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def u8_frames(rng, *shape):
+    return rng.integers(0, 256, shape, dtype=np.uint8)
+
+
+def check_kernel_c(mxu, dev, emit_fn):
+    """Kernel C against its plain version (f32 and float64) on the card."""
+    worst = 0
+    for method in METHODS:
+        res = {"phase": "kernel_c", "method": method, "cases": 0, "max": 0,
+               "share": 0.0, "f64_max": 0, "float_err": 0.0}
+        rng = np.random.default_rng(300)
+        for scale in (4, 2, 3, 1.5, 2.5, 1.25):
+            for (h, w), c in itertools.product(SMALL, (1, 2, 3, 4)):
+                img = torch.from_numpy(u8_frames(rng, 3, h, w, c)).to(dev)
+                cache = {}
+                got = mxu.resize_mxu(img, scale, method, weight_cache=cache)
+                torch.cuda.synchronize()
+                plans = next(iter(cache.values()))[:4]
+                mx, share = diff_u8(got, mxu.resize_mxu_reference(img, *plans))
+                mx64, _ = diff_u8(got, mxu.resize_mxu_reference(
+                    img, *plans, dtype=torch.float64))
+                singles = all(torch.equal(got[i], mxu.resize_mxu(
+                    img[i], scale, method)) for i in range(3))
+                flat = mxu.resize_mxu(img, scale, method, layout="flat")
+                view = mxu.flat_to_hwc_np(flat[0].cpu().numpy(),
+                                          got.shape[1], got.shape[2], c)
+                gf = mxu.resize_mxu(img.float(), scale, method)
+                ferr = float((gf - mxu.resize_mxu_reference(
+                    img.float(), *plans)).abs().max())
+                ok = (mx <= 1 and share < 1e-2 and mx64 <= 1 and singles
+                      and float(got.float().std()) > 0 and ferr < 1e-3
+                      and np.array_equal(view, got[0].cpu().numpy())
+                      and (mx == 0 or method != "nearest"))
+                if not ok:
+                    raise AssertionError(
+                        f"kernel C disagrees with its plain version: "
+                        f"{method} x{scale} {h}x{w}x{c}: {mx} LSB, share "
+                        f"{share}, f64 {mx64}, batch=singles {singles}, "
+                        f"float {ferr}")
+                res["cases"] += 1
+                res["max"] = max(res["max"], mx)
+                res["share"] = max(res["share"], share)
+                res["f64_max"] = max(res["f64_max"], mx64)
+                res["float_err"] = max(res["float_err"], ferr)
+        emit_fn(res)
+        worst = max(worst, res["max"])
+    return worst
+
+
+def check_kernel_d(phase, dev, emit_fn):
+    """Kernel D against its plain version (f32 and float64) on the card."""
+    worst = 0
+    for method, lanczos_a in [(m, 3) for m in METHODS] + [("lanczos", 2)]:
+        res = {"phase": "kernel_d", "method": method, "lanczos_a": lanczos_a,
+               "cases": 0, "max": 0, "share": 0.0, "f64_max": 0,
+               "float_err": 0.0}
+        rng = np.random.default_rng(400)
+        for s in (2, 3, 4):
+            for (h, w), c in itertools.product(SMALL, (1, 2, 3, 4)):
+                img = torch.from_numpy(u8_frames(rng, 3, h, w, c)).to(dev)
+                cache = {}
+                kw = dict(lanczos_a=lanczos_a, weight_cache=cache)
+                got = phase.resize_phase(img, s, method, **kw)
+                torch.cuda.synchronize()
+                wrow, wcol, taps, left = next(iter(cache.values()))
+                ref = lambda x, **k: phase.resize_phase_reference(
+                    x, wrow, wcol, s, taps, left, **k)
+                mx, share = diff_u8(got, ref(img))
+                mx64, _ = diff_u8(got, ref(img, dtype=torch.float64))
+                planar = phase.resize_phase(img, s, method, layout="planar",
+                                            **kw)
+                same = torch.equal(
+                    phase.interleave_planar(planar, h, w, s, c), got)
+                singles = all(torch.equal(got[i], phase.resize_phase(
+                    img[i], s, method, **kw)) for i in range(3))
+                gf = phase.resize_phase(img.float(), s, method, **kw)
+                ferr = float((gf - ref(img.float())).abs().max())
+                ok = (mx <= 1 and share < 1e-2 and mx64 <= 1 and same
+                      and singles and float(got.float().std()) > 0
+                      and ferr < 1e-3 and (mx == 0 or method != "nearest"))
+                if not ok:
+                    raise AssertionError(
+                        f"kernel D disagrees with its plain version: "
+                        f"{method} a={lanczos_a} x{s} {h}x{w}x{c}: {mx} LSB, "
+                        f"share {share}, f64 {mx64}, planar=hwc {same}, "
+                        f"batch=singles {singles}, float {ferr}")
+                res["cases"] += 1
+                res["max"] = max(res["max"], mx)
+                res["share"] = max(res["share"], share)
+                res["f64_max"] = max(res["f64_max"], mx64)
+                res["float_err"] = max(res["float_err"], ferr)
+        emit_fn(res)
+        worst = max(worst, res["max"])
+    return worst
+
+
+def profile_served_frames(up, frame, n, named):
     """Device time by kernel name and the device's busy share over ``n``
-    served frames (``ModelUpscaler.__call__`` with the host fetch), from
-    one torch.profiler trace."""
+    served frames (the upscaler's ``__call__`` with the host fetch), from
+    one torch.profiler trace. ``named``: result key -> substring of the
+    trace's kernel names whose time it sums."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -163,7 +279,7 @@ def profile_served_frames(up, frame, n):
     dev = [e for e in events if e.name != "serve"
            and e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        return {"device_events": 0, "note": "no device time in the trace"}
+        raise RuntimeError("the profiler's trace holds no device time")
     busy, end = 0.0, None
     by_name: dict = {}
     for e in sorted(dev, key=lambda e: e.time_range.start):
@@ -177,14 +293,11 @@ def profile_served_frames(up, frame, n):
             end = b
     span = window.end - window.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    named = lambda key: sum(v for k, v in by_name.items() if key in k)
+    total = lambda key: sum(v for k, v in by_name.items() if key in k)
     return {"frames": n, "host_ms_per_frame": span / 1e3 / n,
             "device_busy_ms_per_frame": busy / 1e3 / n,
             "device_idle_share": 1.0 - busy / span,
-            "packed_tail_fused_ms_per_frame":
-                named("packed_tail_fused_kernel") / 1e3 / n,
-            "interleave_planar_u32_ms_per_frame":
-                named("interleave_kernel") / 1e3 / n,
+            **{key: total(sub) / 1e3 / n for key, sub in named.items()},
             "device_ms_per_frame_by_kernel": {
                 k[:80]: v / 1e3 / n for k, v in top}}
 
@@ -201,9 +314,14 @@ def main() -> int:
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         super_resolve)
     from bicubic_interpolation_model_tpu_torch.ops import interleave as ilv
+    from bicubic_interpolation_model_tpu_torch.ops import mxu, phase
     from bicubic_interpolation_model_tpu_torch.ops import packed_tail as pt
+    from bicubic_interpolation_model_tpu_torch.core import plan as planlib
+    from bicubic_interpolation_model_tpu_torch.ops.resize import (
+        resize, round_u8)
     from bicubic_interpolation_model_tpu_torch.runtime import build
-    from bicubic_interpolation_model_tpu_torch.serving import ModelUpscaler
+    from bicubic_interpolation_model_tpu_torch.serving import (
+        ModelUpscaler, Upscaler)
 
     # the main path runs under PyTorch's default flags (cuDNN TF32 on): the
     # package keeps its f32 convs at full precision itself
@@ -273,6 +391,11 @@ def main() -> int:
             raise AssertionError(f"kernel B differs from its plain version "
                                  f"at {shape}")
 
+    # 4b. kernels C and D vs their plain versions (small geometries here;
+    # the full 1080x1920 frame is held in the upscaler path below)
+    c_err = check_kernel_c(mxu, dev, emit)
+    d_err = check_kernel_d(phase, dev, emit)
+
     # 5. main path: ModelUpscaler on the committed checkpoint
     up = ModelUpscaler(str(ROOT / "model" / "wp-1e-3-120"))
     rng = np.random.default_rng(20)
@@ -328,6 +451,76 @@ def main() -> int:
     if mx > 1 or share >= 1e-3 or float(np.asarray(oa, np.float32).std()) == 0:
         raise AssertionError("wp-adaptive-1e-3-120 disagrees with its graph")
 
+    # 5b. the classical path: Upscaler at 1080x1920 RGBA -> 4x (kernel C
+    # by __call__, stream and batch), 2.5x, and the forced phase route
+    # (kernel D)
+    rng = np.random.default_rng(21)
+    hd = u8_frames(rng, 10, *HD, 4)
+    up4 = Upscaler(scale=4)
+    up25 = Upscaler(scale=2.5)
+    up_ph = Upscaler(scale=4, impl="pallas_phase")
+    mxu.resize_mxu.launches = 0
+    phase.resize_phase.launches = 0
+    hd_outs = [up4(f) for f in hd[:4]]
+    hd_outs += list(up4.stream(iter(hd[4:8])))
+    hd_outs += list(up4.batch(hd[8:10]))
+    out25 = up25(hd[0])
+    out_ph = up_ph(hd[1])
+    torch.cuda.synchronize()
+    launches_cd = {"resize_mxu": mxu.resize_mxu.launches,
+                   "resize_phase": phase.resize_phase.launches}
+    emit({"phase": "upscaler_path", "frame": [*HD, 4], "requests": 8,
+          "batch": 2, "scale_2_5": 1, "forced_phase": 1,
+          "launches": launches_cd})
+    if launches_cd != {"resize_mxu": 10, "resize_phase": 1}:
+        raise AssertionError(f"the upscaler path did not run the kernels "
+                             f"as expected: {launches_cd}")
+    plans4 = next(iter(up4._weight_cache.values()))[:4]
+    plans25 = next(iter(up25._weight_cache.values()))[:4]
+    wrow, wcol, taps_d, left_d = next(iter(up_ph._weight_cache.values()))
+    checks = [(o, hd[i], 4, lambda x: mxu.resize_mxu_reference(
+        x, *plans4, dtype=torch.float64)) for i, o in enumerate(hd_outs)]
+    checks.append((out25, hd[0], 2.5, lambda x: mxu.resize_mxu_reference(
+        x, *plans25, dtype=torch.float64)))
+    checks.append((out_ph, hd[1], 4, lambda x: phase.resize_phase_reference(
+        x, wrow, wcol, 4, taps_d, left_d, dtype=torch.float64)))
+    worst_g, worst_64 = (0, 0.0), (0, 0.0)
+    for i, (o, frame, scale, oracle) in enumerate(checks):
+        want_shape = (int(np.floor(HD[0] * scale + 0.5)),
+                      int(np.floor(HD[1] * scale + 0.5)), 4)
+        if (o.shape != want_shape or o.dtype != np.uint8
+                or o[::8, ::8].std() == 0):
+            raise AssertionError(f"bad output {i}: {o.shape} {o.dtype}")
+        got = torch.from_numpy(np.ascontiguousarray(o)).to(dev)
+        g = diff_u8(got, resize(frame, scale, impl="gather"))
+        f64 = diff_u8(got, oracle(torch.from_numpy(frame).to(dev)[None])[0])
+        worst_g, worst_64 = max(worst_g, g), max(worst_64, f64)
+        if g[0] > 1 or f64[0] > 1 or g[1] >= 1e-3 or f64[1] >= 1e-3:
+            raise AssertionError(f"upscaler output {i} (x{scale}): {g} vs "
+                                 f"gather, {f64} vs the float64 version")
+    c_vs_d = diff_u8(torch.from_numpy(out_ph).to(dev),
+                     torch.from_numpy(hd_outs[1]).to(dev))
+    emit({"phase": "upscaler_path_check", "outputs": len(checks),
+          "vs_gather_max": worst_g[0], "vs_gather_share": worst_g[1],
+          "vs_float64_max": worst_64[0], "vs_float64_share": worst_64[1],
+          "kernel_d_vs_kernel_c_max": c_vs_d[0],
+          "kernel_d_vs_kernel_c_share": c_vs_d[1]})
+    # the full frame, kernel vs its f32 plain version
+    hd_dev = torch.from_numpy(hd[:1]).to(dev)
+    full_c = diff_u8(mxu.resize_mxu(hd_dev, 4, "bicubic"),
+                     mxu.resize_mxu_reference(hd_dev, *plans4))
+    full_d = diff_u8(phase.resize_phase(hd_dev, 4, "bicubic"),
+                     phase.resize_phase_reference(hd_dev, wrow, wcol, 4,
+                                                  taps_d, left_d))
+    emit({"phase": "full_frame_vs_plain", "kernel_c_max": full_c[0],
+          "kernel_c_share": full_c[1], "kernel_d_max": full_d[0],
+          "kernel_d_share": full_d[1]})
+    if max(full_c[0], full_d[0]) > 1 or max(full_c[1], full_d[1]) >= 1e-3:
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the full frame")
+    c_err, d_err = max(c_err, full_c[0]), max(d_err, full_d[0])
+    del hd_outs, checks, out25, out_ph
+
     # 6. times at the main path's shapes
     # inputs rotate over 4 (A) or 8 (B) copies, 91 MB each way, so every
     # call reads from HBM and not from the 50 MB L2
@@ -346,17 +539,17 @@ def main() -> int:
     run_b_lib = rotating(lambda t: t.permute(1, 2, 0).contiguous(), b_in)
     # per-call times with the wrapper's host cost: CUDA events around
     # back-to-back calls; kernel times: device time per launch from the
-    # profiler (the per-call time where the trace holds no device events)
+    # profiler
     a_call = time_ms(run_a, iters=10)
     a_plain_call = time_ms(run_a_plain, runs=5)
     b_call = time_ms(run_b, iters=50)
     b_plain_call = time_ms(run_b_plain, iters=50)
     b_lib_call = time_ms(run_b_lib, iters=50)
-    a_ms = device_ms(run_a) or a_call
-    a_plain = device_ms(run_a_plain, n=5) or a_plain_call
-    b_ms = device_ms(run_b) or b_call
-    b_plain = device_ms(run_b_plain) or b_plain_call
-    b_lib = device_ms(run_b_lib) or b_lib_call
+    a_ms = device_ms(run_a)
+    a_plain = device_ms(run_a_plain, n=5)
+    b_ms = device_ms(run_b)
+    b_plain = device_ms(run_b_plain)
+    b_lib = device_ms(run_b_lib)
     lr_dev = torch.as_tensor(frames[0]).to(dev)
     call_dev = time_ms(lambda: up(lr_dev, fetch=False), iters=10)
     call_host = time_ms(lambda: up(frames[0]))
@@ -381,7 +574,98 @@ def main() -> int:
           "interleave_bytes": b_bytes, "interleave_bound_ms": b_bound})
 
     emit({"phase": "profile", "card": name_power,
-          **profile_served_frames(up, frames[0], n=5)})
+          **profile_served_frames(up, frames[0], 5, {
+              "packed_tail_fused_ms_per_frame": "packed_tail_fused_kernel",
+              "interleave_planar_u32_ms_per_frame": "interleave_kernel"})})
+
+    # 6b. times of the classical path at 1080x1920 RGBA -> 4x: inputs
+    # rotate over 8 copies (66 MB), and each call writes 132.7 MB, so every
+    # launch reads from HBM
+    c_in = [(torch.from_numpy(hd[i:i + 1]).to(dev),) for i in range(8)]
+    wc_c, wc_d = {}, {}
+    run_c = rotating(lambda x: mxu.resize_mxu(
+        x, 4, "bicubic", weight_cache=wc_c), c_in)
+    run_d = rotating(lambda x: phase.resize_phase(
+        x, 4, "bicubic", weight_cache=wc_d), c_in)
+    run_d_planar = rotating(lambda x: phase.resize_phase(
+        x, 4, "bicubic", weight_cache=wc_d, layout="planar"), c_in)
+    run_c25 = rotating(lambda x: mxu.resize_mxu(
+        x, 2.5, "bicubic", weight_cache=wc_c), c_in)
+    run_c_plain = rotating(lambda x: mxu.resize_mxu_reference(
+        x, *plans4), c_in)
+    run_d_plain = rotating(lambda x: phase.resize_phase_reference(
+        x, wrow, wcol, 4, taps_d, left_d), c_in)
+    # library yardstick: the port's impl="matmul" arithmetic with its two
+    # dense sampling matrices already on the card (two torch.matmul, round,
+    # permute to HWC)
+    m_row, m_col_t = (torch.from_numpy(planlib.plan_to_matrix(
+        planlib.plan_axis("bicubic", n, 4.0))).to(dev) for n in HD)
+    m_col_t = m_col_t.T.contiguous()
+
+    def matmul_resize(x):
+        chw = x[0].permute(2, 0, 1).to(torch.float32)
+        return round_u8(torch.matmul(torch.matmul(m_row, chw),
+                                     m_col_t).permute(1, 2, 0)).contiguous()
+    lib_err = diff_u8(matmul_resize(c_in[0][0]),
+                      mxu.resize_mxu(c_in[0][0], 4, "bicubic")[0])
+    if lib_err[0] > 1:
+        raise AssertionError(f"the matmul yardstick computes another "
+                             f"function: {lib_err}")
+    run_lib = rotating(matmul_resize, c_in)
+    c_call = time_ms(run_c, iters=10)
+    d_call = time_ms(run_d, iters=10)
+    c_ms = device_ms(run_c)
+    d_ms = device_ms(run_d)
+    d_planar_ms = device_ms(run_d_planar)
+    c25_ms = device_ms(run_c25)
+    c_plain = device_ms(run_c_plain, n=3, warmup=1)
+    d_plain = device_ms(run_d_plain, n=3, warmup=1)
+    lib_ms = device_ms(run_lib, n=5, warmup=2)
+    torch.cuda.empty_cache()
+    ho, wo = HD[0] * 4, HD[1] * 4
+    cd_bound, cd_by, cd_bytes, cd_flops = resize_bound(
+        1, *HD, 4, ho, wo, 4, 1)
+    frame_dev = c_in[0][0][0]
+    up_dev = time_ms(lambda: up4(frame_dev, fetch=False), iters=10)
+    up_host = time_ms(lambda: up4(hd[0]), runs=10)
+    ph_dev = time_ms(lambda: up_ph(frame_dev, fetch=False), iters=10)
+    # 128x128 frames through stream(), grouped by the microbatch policy and
+    # one by one (host clock around the whole stream, fetches included)
+    small = list(u8_frames(np.random.default_rng(22), 256, 128, 128, 4))
+    stream_ms = {}
+    for mode in ("auto", None, "auto", None):
+        list(up4.stream(iter(small[:64]), microbatch=mode))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_out = len(list(up4.stream(iter(small), microbatch=mode)))
+        torch.cuda.synchronize()
+        stream_ms.setdefault(str(mode), []).append(
+            (time.perf_counter() - t0) * 1e3 / n_out)
+    emit({"phase": "times_classical", "card": name_power,
+          "frame": [*HD, 4], "scale": 4, "method": "bicubic",
+          "resize_mxu_ms": c_ms, "resize_phase_ms": d_ms,
+          "resize_phase_planar_ms": d_planar_ms,
+          "resize_mxu_scale_2_5_ms": c25_ms,
+          "resize_mxu_plain_ms_no_yardstick": c_plain,
+          "resize_phase_plain_ms_no_yardstick": d_plain,
+          "resize_matmul_library_ms": lib_ms,
+          "per_call_ms_with_host_launch": {"resize_mxu": c_call,
+                                           "resize_phase": d_call},
+          "bytes": cd_bytes, "flops": cd_flops, "bound_ms": cd_bound,
+          "bound_by": cd_by,
+          "upscaler_call_device_ms": up_dev,
+          "upscaler_call_fetch_ms": up_host,
+          "upscaler_forced_phase_call_device_ms": ph_dev,
+          "output_gpix_per_s_device": ho * wo / up_dev / 1e6,
+          "output_gpix_per_s_with_fetch": ho * wo / up_host / 1e6,
+          "stream_128x128_ms_per_frame_grouped": stream_ms["auto"],
+          "stream_128x128_ms_per_frame_single": stream_ms["None"]})
+
+    emit({"phase": "profile_classical", "card": name_power,
+          **profile_served_frames(up4, hd[0], 5, {
+              "resize_mxu_ms_per_frame": "resize_plan_kernel",
+              "memcpy_dtoh_ms_per_frame": "Memcpy DtoH",
+              "memcpy_htod_ms_per_frame": "Memcpy HtoD"})})
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [
@@ -398,7 +682,20 @@ def main() -> int:
                      "pallas_interleave.py:38",
          "launches": launches["interleave_planar_u32"], "max_abs_err": b_err,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
-         "bound_by": "bytes", "library_ms": b_lib}]})
+         "bound_by": "bytes", "library_ms": b_lib},
+        {"name": "resize_mxu", "route": "cuda",
+         "source": "bicubic_interpolation_model_tpu_torch/csrc/resize_mxu.cu",
+         "replaces": "bicubic_interpolation_model_tpu/ops/pallas_mxu.py:60",
+         "launches": launches_cd["resize_mxu"], "max_abs_err": c_err,
+         "ms": c_ms, "plain_ms": c_plain, "bound_ms": cd_bound,
+         "bound_by": cd_by, "library_ms": lib_ms},
+        {"name": "resize_phase", "route": "cuda",
+         "source": "bicubic_interpolation_model_tpu_torch/csrc/"
+                   "resize_phase.cu",
+         "replaces": "bicubic_interpolation_model_tpu/ops/pallas_phase.py:49",
+         "launches": launches_cd["resize_phase"], "max_abs_err": d_err,
+         "ms": d_ms, "plain_ms": d_plain, "bound_ms": cd_bound,
+         "bound_by": cd_by, "library_ms": lib_ms}]})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -99,4 +99,8 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(mods) >= 15
+    pkg = "bicubic_interpolation_model_tpu_torch."
+    for name in ("core.kernels", "core.plan", "ops.resize", "ops.mxu",
+                 "ops.phase", "serving"):
+        assert pkg + name in mods
+    assert len(mods) >= 21
