@@ -6,7 +6,8 @@ in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
 kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
 use). It imports nothing of the JAX package.
 
-Ported so far (learned-SR serving and classical resize serving):
+Ported so far (learned-SR serving, classical resize serving and adaptive
+bicubic serving):
 
 core        interpolation kernels and axis plans (NumPy, float64, host)
 train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
@@ -16,7 +17,10 @@ ops         offsets / GT weights / apply-weights, the fused packed tail
             resize (gather / matmul / phase and the dispatch), the
             plan-driven resize at any rational scale (CUDA kernel C,
             ``ops/mxu``), the phase-FMA resize at integer scales (CUDA
-            kernel D, ``ops/phase``)
+            kernel D, ``ops/phase``), the banded-matrix resize behind
+            ``impl="pallas"`` (CUDA kernel F, ``ops/banded``); adaptive
+            bicubic (``ops/adaptive``: the plain graph and the dispatch;
+            CUDA kernel E, ``ops/adaptive_fused``); antialiased downsample
 evaluation  checkpoint loading by ``meta.json``
 serving     ModelUpscaler, Upscaler
 runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``

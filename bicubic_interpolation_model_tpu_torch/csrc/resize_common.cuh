@@ -1,6 +1,7 @@
-// Shared pieces of the two separable resize kernels (resize_mxu.cu,
-// resize_phase.cu): the element type per input kind, the reference's JS
-// rounding, and pixel-wide shared-memory loads and global stores.
+// Shared pieces of the separable resize kernels (resize_mxu.cu,
+// resize_phase.cu, resize_banded.cu): the element type per input kind, the
+// reference's JS rounding, and pixel-wide shared-memory loads and global
+// stores.
 
 #pragma once
 

@@ -1,0 +1,78 @@
+"""Antialiased image downsampling (counterpart of
+``bicubic_interpolation_model_tpu/ops/downsample.py``).
+
+Two dense sampling-matrix products in f32 from :func:`..core.plan.
+plan_downsample` (HR→LR generation: ``cubic`` or ``lanczos3``). The JAX
+package computes them outside any kernel at full f32 precision, so they are
+two ``torch.matmul`` s here, with TF32 kept off.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import plan as planlib
+from ..runtime.device import resolve_device
+from .resize import _full_f32_matmul, round_u8
+
+
+def _out_shape(h, w, factor, out_shape):
+    if out_shape is None:
+        return int(h // factor), int(w // factor)
+    return out_shape
+
+
+def downsample(img, factor: float, method: str = "cubic",
+               out_shape: tuple[int, int] | None = None, *, device="cuda"):
+    """Downsample an HW/HWC image (numpy or tensor) by ``factor`` (>= 1) with
+    antialiasing; returns a tensor on ``device`` (the card by default:
+    without one it raises unless given ``device="cpu"``).
+
+    uint8 → uint8 (round half-up), float → float."""
+    img = torch.as_tensor(img).to(resolve_device(device))
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    h_out, w_out = _out_shape(h, w, factor, out_shape)
+    dev = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(
+        img.device)
+    m_row = dev(planlib.plan_to_matrix(
+        planlib.plan_downsample(h, float(factor), method, n_out=h_out)))
+    m_col_t = dev(planlib.plan_to_matrix(
+        planlib.plan_downsample(w, float(factor), method, n_out=w_out)).T)
+    in_dtype = img.dtype
+    chw = img.permute(2, 0, 1).to(torch.float32)
+    with _full_f32_matmul():
+        out = torch.matmul(torch.matmul(m_row, chw), m_col_t)
+    out = out.permute(1, 2, 0)
+    if squeeze:
+        out = out[..., 0]
+    if in_dtype == torch.uint8:
+        return round_u8(out)
+    return out.to(in_dtype)
+
+
+def downsample_np(img: np.ndarray, factor: float, method: str = "cubic",
+                  out_shape: tuple[int, int] | None = None) -> np.ndarray:
+    """Host-side NumPy variant (float64): the same plans and semantics as
+    :func:`downsample`, for data pipelines that stay off the device."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    h_out, w_out = _out_shape(h, w, factor, out_shape)
+    m_row = planlib.plan_to_matrix(
+        planlib.plan_downsample(h, factor, method, n_out=h_out), np.float64)
+    m_col = planlib.plan_to_matrix(
+        planlib.plan_downsample(w, factor, method, n_out=w_out), np.float64)
+    x = img.astype(np.float64)
+    t = np.einsum("oh,hwc->owc", m_row, x)
+    out = np.einsum("owc,xw->oxc", t, m_col)
+    if img.dtype == np.uint8:
+        out = np.clip(np.floor(out + 0.5), 0, 255).astype(np.uint8)
+    else:
+        out = out.astype(img.dtype)
+    return out[..., 0] if squeeze else out

@@ -14,15 +14,16 @@ Three interchangeable plain implementations of the same separable semantics
             band (where the reference's clamp semantics act) is patched
             with the exact gather rows.
 
-The two CUDA kernels are reached through the JAX package's ``impl`` names:
-``pallas_mxu`` (:mod:`.mxu`, kernel C) and ``pallas_phase`` (:mod:`.phase`,
-kernel D). ``impl="auto"`` on a CUDA device takes kernel C for everything
+The three CUDA kernels are reached through the JAX package's ``impl`` names:
+``pallas_mxu`` (:mod:`.mxu`, kernel C), ``pallas_phase`` (:mod:`.phase`,
+kernel D) and ``pallas`` (:mod:`.banded`, kernel F, integer scales).
+``impl="auto"`` on a CUDA device takes kernel C for everything
 that kernel takes (:func:`~.mxu.mxu_takes`: the four methods, 1..4 channels,
 any scale >= 1 with a rational reduction, integer scales included). Only
 what no kernel takes (more than 4 channels, a downscale, a scale with no
 small rational form) goes to the plain graph there (``phase`` for bicubic
 integer scales, ``matmul`` otherwise), as every ``auto`` request does on the
-CPU. Kernel D is reached by name. This one function owns the dispatch:
+CPU. Kernels D and F are reached by name. This one function owns the dispatch:
 :class:`~..serving.Upscaler` calls it with its weight cache and routes
 nothing itself.
 
@@ -258,10 +259,9 @@ def _resize(img, scale, method, impl, a, lanczos_a, device, batched,
         return resize_mxu(img, scale, method, a=a, lanczos_a=lanczos_a,
                           weight_cache=weight_cache)
     if impl == "pallas":
-        raise NotImplementedError(
-            "impl='pallas' (the round-1 banded-matmul kernel, "
-            "ops/pallas_resize.py) is not ported yet: ROADMAP.md queue B "
-            "item 7")
+        from .banded import resize_banded
+        return resize_banded(img, scale, method, a=a, lanczos_a=lanczos_a,
+                             weight_cache=weight_cache)
     if impl == "pallas_phase":
         from .phase import resize_phase
         return resize_phase(img, scale, method=method, a=a,
@@ -278,7 +278,8 @@ def resize(img, scale: float, method: str = "bicubic", *,
     default: without one it raises unless given ``device="cpu"``).
 
     uint8 input → uint8 output (JS rounding); float input → float output.
-    ``impl``: auto | gather | matmul | phase | pallas_mxu | pallas_phase.
+    ``impl``: auto | gather | matmul | phase | pallas_mxu | pallas_phase |
+    pallas.
     ``weight_cache`` (a dict the caller owns) keeps the kernels' per-size
     device plan arrays across calls.
     """

@@ -2,9 +2,10 @@
 ``bicubic_interpolation_model_tpu/serving.py``).
 
 - :class:`Upscaler` — the classical resamplers (nearest, bilinear, bicubic,
-  Lanczos) at integer and rational scales, batch-aware (the batch rides the
-  kernels' ``blockIdx.z``), with a :meth:`~Upscaler.stream` that keeps one
-  dispatch in flight while the previous frame is fetched.
+  Lanczos) at integer and rational scales and adaptive bicubic at integer
+  scales, batch-aware (the batch rides the kernels' ``blockIdx.z``), with a
+  :meth:`~Upscaler.stream` that keeps one dispatch in flight while the
+  previous frame is fetched.
 - :class:`ModelUpscaler` — the learned pipeline behind the same interface.
 
 Both return host uint8 HWC arrays; ``fetch=False`` keeps the device tensor
@@ -86,8 +87,15 @@ class Upscaler:
     routing: on a CUDA device kernel C (``ops/mxu``) for whatever that
     kernel takes, the plain graph only for what no kernel takes. ``impl``
     takes the JAX package's names (``auto``, ``gather``, ``matmul``,
-    ``phase``, ``pallas_mxu``, ``pallas_phase``); the two ``pallas_*`` names
-    force a kernel's route (its plain version on the CPU).
+    ``phase``, ``pallas_mxu``, ``pallas_phase``, ``pallas``); the
+    ``pallas*`` names force a kernel's route (its plain version on the
+    CPU).
+
+    ``method="adaptive"`` (integer scales only) hands its frames to
+    ``ops/adaptive``, which routes them alike: kernel E
+    (``ops/adaptive_fused``) on a CUDA device for uint8 frames of 3 or 4
+    channels. There ``impl`` is ``auto`` (``pallas_phase`` means the same),
+    ``pallas`` or ``jnp``, and ``stream`` never groups frames.
 
     ``bucket``: in the JAX package, frame extents round up to multiples of
     this many LR pixels so one compiled program serves a bucket of sizes,
@@ -106,29 +114,41 @@ class Upscaler:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.method == "adaptive":
-            raise NotImplementedError(
-                "method='adaptive' (ops/adaptive.py and the Pallas kernel "
-                "of ops/pallas_adaptive.py) is not ported yet: ROADMAP.md "
-                "queue A item 4 and queue B item 6")
         self._device = resolve_device(self.device)
         self._weight_cache: dict = {}
 
     def _kw(self):
-        return dict(impl=self.impl, a=self.a, device=self._device,
+        impl = self.impl
+        if self.method == "adaptive" and impl == "pallas_phase":
+            impl = "auto"
+        return dict(impl=impl, a=self.a, device=self._device,
                     weight_cache=self._weight_cache)
 
     def __call__(self, img_u8, fetch: bool = True):
         """One [H, W(, C)] frame (numpy or tensor). ``fetch=True`` returns
-        a host HWC uint8 array; ``fetch=False`` the device tensor."""
-        from .ops.resize import resize
-        out = resize(img_u8, self.scale, self.method, **self._kw())
+        a host HWC uint8 array; ``fetch=False`` the device tensor: for an
+        adaptive RGBA frame that kernel E serves on the card that is the
+        RGBA32 word array, uint32 [H*S, W*S], whose little-endian bytes are
+        the HWC frame (pass it to :func:`_fetch` or view the bytes
+        yourself); otherwise uint8 [H*S, W*S(, C)]."""
+        if self.method == "adaptive":
+            from .ops.adaptive import adaptive_resize
+            out = adaptive_resize(img_u8, self.scale, layout="auto",
+                                  **self._kw())
+        else:
+            from .ops.resize import resize
+            out = resize(img_u8, self.scale, self.method, **self._kw())
         return _fetch(out) if fetch else out
 
     def batch(self, imgs_u8, fetch: bool = True):
         """[B, H, W(, C)] same-size images in one kernel launch."""
-        from .ops.resize import resize_batch
-        out = resize_batch(imgs_u8, self.scale, self.method, **self._kw())
+        if self.method == "adaptive":
+            from .ops.adaptive import adaptive_resize_batch
+            out = adaptive_resize_batch(imgs_u8, self.scale, **self._kw())
+        else:
+            from .ops.resize import resize_batch
+            out = resize_batch(imgs_u8, self.scale, self.method,
+                               **self._kw())
         return _fetch(out) if fetch else out
 
     #: the JAX package's auto-microbatch policy value, kept so that both
@@ -150,7 +170,7 @@ class Upscaler:
         bit-identical to per-frame dispatch (the batch is a grid
         dimension); the plain versions hold the ±1 u8 LSB contract."""
         def group_size(img):
-            if microbatch is None:
+            if microbatch is None or self.method == "adaptive":
                 return 1
             if isinstance(microbatch, int):
                 return max(1, microbatch)

@@ -1,6 +1,7 @@
-"""The CUDA kernels of the port (csrc/packed_tail.cu, csrc/interleave.cu,
-csrc/resize_mxu.cu, csrc/resize_phase.cu) against their plain PyTorch
-versions, and the wrapper contract around them.
+"""The six CUDA kernels of the port (csrc/packed_tail.cu, csrc/interleave.cu,
+csrc/resize_mxu.cu, csrc/resize_phase.cu, csrc/adaptive.cu,
+csrc/resize_banded.cu) against their plain PyTorch versions, and the wrapper
+contract around them.
 
 This file imports nothing of JAX, so it also runs on a machine with a card
 and no JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -12,7 +13,11 @@ bf16 features (sums in another order); kernel B bit-equal (a copy);
 kernels C and D ≤1 u8 LSB from their plain versions at f32 (nvcc contracts
 a*b+c to FMA, PyTorch does not) with a share of differing bytes < 1e-3, and
 ≤1 LSB from the plain versions at float64; ``nearest`` bit-equal; float
-inputs within 1e-3 absolute on a 0-255 range."""
+inputs within 1e-3 absolute on a 0-255 range; kernel F the same as C and D;
+kernel E ≤1 u8 LSB from its plain version at f32 and float64 with a share of
+differing bytes < 1e-3 (FMA contraction, ``expf`` against ``torch.exp``) and
+the same region class at every pixel (its variance stage is written without
+contraction in the plain version's order of summation)."""
 
 import pathlib
 import subprocess
@@ -22,8 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import all_class_frames
 from bicubic_interpolation_model_tpu_torch.models.inference import (
     _tail_operands)
+from bicubic_interpolation_model_tpu_torch.ops import adaptive_fused as adf
+from bicubic_interpolation_model_tpu_torch.ops import banded
 from bicubic_interpolation_model_tpu_torch.ops import interleave as ilv
 from bicubic_interpolation_model_tpu_torch.ops import mxu, phase
 from bicubic_interpolation_model_tpu_torch.ops import packed_tail as pt
@@ -84,6 +92,17 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(got, phase.resize_phase_reference(img, wrow, wcol, 3,
                                                          taps, left))
     assert (mxu.resize_mxu.launches, phase.resize_phase.launches) == (c0, d0)
+    e0, f0 = adf.adaptive_resize_fused.launches, banded.resize_banded.launches
+    cache = {}
+    got = adf.adaptive_resize_fused(img[..., :3], 2, weight_cache=cache)
+    assert torch.equal(got, adf.adaptive_resize_reference(
+        img[..., :3], *next(iter(cache.values())), 2))
+    cache = {}
+    got = banded.resize_banded(img, 3, "lanczos", weight_cache=cache)
+    assert torch.equal(got, banded.resize_banded_reference(
+        img, *next(iter(cache.values()))[:2], 3, 2))
+    assert (adf.adaptive_resize_fused.launches,
+            banded.resize_banded.launches) == (e0, f0)
     planar = pt.packed_tail_fused(*args, layout="planar")
     ref = pt.packed_tail_fused_reference(args[0][None], args[1][None],
                                          *args[2:])[0]
@@ -100,7 +119,8 @@ def test_importing_the_port_builds_nothing():
     """Importing every kernel module neither runs nvcc nor loads a
     library: the build happens at the first launch on a card."""
     code = ("from bicubic_interpolation_model_tpu_torch.ops import "
-            "packed_tail, interleave, mxu, phase, resize\n"
+            "packed_tail, interleave, mxu, phase, resize, adaptive, "
+            "adaptive_fused, banded, downsample\n"
             "from bicubic_interpolation_model_tpu_torch.runtime import build\n"
             "assert build._lib is None\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -111,15 +131,15 @@ def test_importing_the_port_builds_nothing():
 def test_kernel_sources_are_listed():
     from bicubic_interpolation_model_tpu_torch.runtime import build
     names = [p.name for p in build.sources()]
-    assert names == ["interleave.cu", "packed_tail.cu", "resize_mxu.cu",
-                     "resize_phase.cu"]
+    assert names == ["adaptive.cu", "interleave.cu", "packed_tail.cu",
+                     "resize_banded.cu", "resize_mxu.cu", "resize_phase.cu"]
     for name in names:
         text = (build.CSRC / name).read_text()
         assert "Replaces:" in text and "extern \"C\"" in text
     entry_points = " ".join((build.CSRC / n).read_text() for n in names)
     for symbol in build._SIGNATURES:
         assert f"int {symbol}(" in entry_points
-    assert len(build._SIGNATURES) == 4
+    assert len(build._SIGNATURES) == 6
 
 
 @pytest.mark.cuda
@@ -320,3 +340,183 @@ def test_resize_and_upscaler_route_to_the_kernels_on_card(cuda):
     outs = list(Upscaler(scale=4, impl="pallas_phase").stream([img, img]))
     assert phase.resize_phase.launches == d0 + 2   # one grouped launch
     assert _diff_u8(torch.from_numpy(outs[1]).to(cuda), out)[0] <= 1
+
+
+def _all_class_frames(seed, b, h, w, c, device="cpu"):
+    """Frames that reach all three region classes of adaptive bicubic and
+    both thresholds, from a seed."""
+    return torch.from_numpy(all_class_frames(
+        np.random.default_rng(seed), b, h, w, c)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+@pytest.mark.parametrize("h,w,c", [(13, 11, 4), (8, 40, 3), (24, 70, 4),
+                                   (37, 33, 3)])
+def test_kernel_e_matches_plain_on_card(cuda, s, h, w, c):
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        luma_bt709, region_classes)
+    img = _all_class_frames(h + s, 3, h, w, c, cuda)
+    cache = {}
+    cls = torch.empty((3, h, w), dtype=torch.uint8, device=cuda)
+    before = adf.adaptive_resize_fused.launches
+    got = adf.adaptive_resize_fused(img, s, weight_cache=cache,
+                                    classes_out=cls)
+    assert adf.adaptive_resize_fused.launches == before + 1
+    assert got.shape == (3, h * s, w * s, c) and got.dtype == torch.uint8
+    wts = next(iter(cache.values()))
+    want_cls = region_classes(luma_bt709(img.float()))
+    assert torch.equal(cls, want_cls)
+    assert len(torch.unique(cls)) == 3 or h * w < 1000
+    mx, share = _diff_u8(got, adf.adaptive_resize_reference(img, *wts, s))
+    assert mx <= 1 and share < 1e-3
+    mx64, share64 = _diff_u8(got, adf.adaptive_resize_reference(
+        img, *wts, s, dtype=torch.float64))
+    assert mx64 <= 1 and share64 < 1e-3
+    assert torch.equal(got[1], adf.adaptive_resize_fused(img[1], s))
+    planar = adf.adaptive_resize_fused(img, s, layout="planar")
+    assert planar.shape == (3, s, h * s, w) and planar.dtype == torch.uint32
+    assert torch.equal(adf.unpack_planar(planar, h, w, s, c), got)
+    if c == 4:
+        words = adf.adaptive_resize_fused(img[0], s, layout="hwc32")
+        assert words.shape == (h * s, w * s) and words.dtype == torch.uint32
+        assert torch.equal(words.view(torch.uint8).reshape(got[0].shape),
+                           got[0])
+        # kernel B interleaves kernel E's planar output into the same words
+        assert torch.equal(
+            ilv.interleave_planar_u32(planar[0]).view(torch.uint8),
+            words.view(torch.uint8))
+        opq = img.clone()
+        opq[..., 3] = 255
+        assert torch.equal(
+            adf.adaptive_resize_fused(opq, s, opaque_alpha=True),
+            adf.adaptive_resize_fused(opq, s))
+
+
+@pytest.mark.cuda
+def test_kernel_e_full_frame_and_staging_passes_on_card(cuda):
+    img = _all_class_frames(0, 1, 1080, 1920, 4, cuda)
+    cache = {}
+    got = adf.adaptive_resize_fused(img, 4, weight_cache=cache)
+    assert got.shape == (1, 4320, 7680, 4)
+    mx, share = _diff_u8(got, adf.adaptive_resize_reference(
+        img, *next(iter(cache.values())), 4))
+    assert mx <= 1 and share < 1e-3
+    # the output tile is staged in passes where it outgrows shared memory
+    # (scales above 14), by row phases and then by column phases too; a
+    # bound on the staged phases makes small scales take the same passes
+    for c in (3, 4):
+        small = _all_class_frames(1, 2, 19, 41, c, cuda)
+        for s, stages in [(15, (0,)), (17, (0, 40, 5)), (5, (0, 12, 5, 3, 1)),
+                          (4, (8, 2)), (3, (2,))]:
+            wts = adf._weights(19, 41, s, -0.5, cuda, None)
+            want = adf.adaptive_resize_reference(small, *wts, s)
+            one_pass = None
+            for stage in stages:
+                got = adf.adaptive_resize_fused(small, s, stage_phases=stage)
+                assert got.shape == (2, 19 * s, 41 * s, c)
+                assert _diff_u8(got, want)[0] <= 1
+                planar = adf.adaptive_resize_fused(
+                    small, s, layout="planar", stage_phases=stage)
+                assert torch.equal(adf.unpack_planar(planar, 19, 41, s, c),
+                                   got)
+                # the passes change where a pixel is staged, not its value
+                one_pass = got if one_pass is None else one_pass
+                assert torch.equal(got, one_pass)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_kernel_f_matches_plain_on_card(cuda, method, s):
+    for h, w, c in [(23, 37, 4), (40, 70, 3), (13, 9, 1), (7, 5, 6)]:
+        img = _frames(h + s, 2, h, w, c, cuda)
+        cache = {}
+        before = banded.resize_banded.launches
+        got = banded.resize_banded(img, s, method, weight_cache=cache)
+        assert banded.resize_banded.launches == before + 1
+        b_row, b_colt, left = next(iter(cache.values()))
+        ref = banded.resize_banded_reference(img, b_row, b_colt, s, left)
+        mx, share = _diff_u8(got, ref)
+        assert mx <= 1 and share < 1e-3
+        assert mx == 0 or method != "nearest"
+        assert _diff_u8(got, banded.resize_banded_reference(
+            img, b_row, b_colt, s, left, dtype=torch.float64))[0] <= 1
+        assert torch.equal(got[1], banded.resize_banded(img[1], s, method))
+        if c <= 4:
+            assert _diff_u8(got, mxu.resize_mxu(img, s, method))[0] <= 1
+        gf = banded.resize_banded(img.float(), s, method)
+        rf = banded.resize_banded_reference(img.float(), b_row, b_colt, s,
+                                            left)
+        assert gf.dtype == torch.float32
+        assert float((gf - rf).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_kernel_f_full_frame_and_shared_memory_limit_on_card(cuda):
+    big = _frames(6, 1, 1080, 1920, 4, cuda)
+    got = banded.resize_banded(big, 4, "bicubic")
+    mx, share = _diff_u8(got, mxu.resize_mxu(big, 4, "bicubic"))
+    assert got.shape == (1, 4320, 7680, 4) and mx <= 1 and share < 1e-3
+    small = _frames(7, 1, 9, 9, 1, cuda)
+    assert banded.resize_banded(small, 24, "nearest").shape == (1, 216, 216, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        banded.resize_banded(small, 40, "lanczos")
+
+
+@pytest.mark.cuda
+def test_adaptive_and_banded_route_to_the_kernels_on_card(cuda):
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        adaptive_resize, adaptive_resize_batch)
+    from bicubic_interpolation_model_tpu_torch.ops.resize import resize
+    from bicubic_interpolation_model_tpu_torch.serving import Upscaler
+    frames = _all_class_frames(9, 3, 20, 24, 4).numpy()
+    img = frames[0]
+    e0, f0 = adf.adaptive_resize_fused.launches, banded.resize_banded.launches
+    # auto on the card takes kernel E for 3 and 4 channels
+    out = adaptive_resize(img, 4)
+    rgb = adaptive_resize(img[..., :3], 4)
+    assert out.is_cuda and rgb.is_cuda
+    assert adf.adaptive_resize_fused.launches == e0 + 2
+    assert _diff_u8(out, adaptive_resize(img, 4, impl="jnp"))[0] <= 1
+    assert _diff_u8(rgb, adaptive_resize(img[..., :3], 4, impl="jnp"))[0] <= 1
+    assert adf.adaptive_resize_fused.launches == e0 + 2    # jnp: the graph
+    # numpy frames handed to the wrappers themselves go to the card
+    assert adf.adaptive_resize_fused(img, 2).is_cuda
+    assert banded.resize_banded(img, 2).is_cuda
+    e0, f0 = e0 + 3, f0 + 1
+    # what kernel E does not take goes to the plain graph
+    five = np.concatenate([img, img[..., :1]], axis=-1)
+    assert adaptive_resize(five, 2).shape == (40, 48, 5)
+    assert adf.adaptive_resize_fused.launches == e0
+    # no scale is left to the plain graph
+    assert adaptive_resize(img[:4, :4], 15).shape == (60, 60, 4)
+    assert adf.adaptive_resize_fused.launches == e0 + 1
+    e0 += 1
+    with pytest.raises(ValueError, match="3 or 4 channels"):
+        adaptive_resize(five, 2, impl="pallas")
+    # the Upscaler: words without the fetch, bytes with it, one launch per
+    # frame by __call__ and stream, one per batch
+    up = Upscaler(scale=4, method="adaptive")
+    words = up(img, fetch=False)
+    assert words.dtype == torch.uint32 and words.shape == (80, 96)
+    host = up(img)
+    assert host.shape == (80, 96, 4) and host.dtype == np.uint8
+    np.testing.assert_array_equal(host, out.cpu().numpy())
+    assert up(img[..., :3], fetch=False).dtype == torch.uint8
+    streamed = list(up.stream(list(frames), microbatch=3))
+    b = up.batch(frames)
+    assert b.shape == (3, 80, 96, 4)
+    assert adf.adaptive_resize_fused.launches == e0 + 3 + 3 + 1
+    for k in range(3):
+        np.testing.assert_array_equal(streamed[k], b[k])
+    assert torch.equal(adaptive_resize_batch(frames, 4)[0], out)
+    assert Upscaler(scale=4, method="adaptive", bucket=16)(img).shape == (
+        80, 96, 4)
+    # impl="pallas" of the classical resize is kernel F
+    got = resize(img, 3, impl="pallas")
+    assert banded.resize_banded.launches == f0 + 1
+    assert _diff_u8(got, resize(img, 3, impl="gather"))[0] <= 1
+    assert Upscaler(scale=2, impl="pallas").batch(frames).shape == (
+        3, 40, 48, 4)
+    assert banded.resize_banded.launches == f0 + 2

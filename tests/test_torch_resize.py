@@ -86,7 +86,7 @@ def test_resize_2d_grayscale_and_tensor_input():
 
 
 @pytest.mark.parametrize("impl", ["auto", "gather", "matmul", "pallas_mxu",
-                                  "pallas_phase"])
+                                  "pallas_phase", "pallas"])
 def test_resize_batch(impl):
     imgs = np.stack([_image(5 + i, 8, 6) for i in range(3)])
     out = resize_batch(imgs, 2.0, "bicubic", impl=impl, device="cpu")
@@ -127,9 +127,17 @@ def test_resize_rejects_bad_args():
         resize(img, 2.5, "bicubic", impl="pallas_phase", device="cpu")
 
 
-def test_unported_kernel_route_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B"):
-        resize(_image(9, 4, 4), 2, "bicubic", impl="pallas", device="cpu")
+def test_banded_route_takes_integer_scales_only():
+    """``impl="pallas"`` is a working route (the banded-matrix kernel's; on
+    the CPU its plain version) that takes integer scales only;
+    tests/test_torch_banded.py holds it against the JAX kernel."""
+    img = _image(9, 4, 4)
+    got = resize(img, 2, "bicubic", impl="pallas", device="cpu")
+    _parity(got.numpy(), resize_oracle(img, 2.0, "bicubic"))
+    with pytest.raises(ValueError, match="integer upscale"):
+        resize(img, 2.5, "bicubic", impl="pallas", device="cpu")
+    with pytest.raises(ValueError, match="integer upscale"):
+        resize_batch(img[None], 1.5, "bicubic", impl="pallas", device="cpu")
 
 
 def test_needs_a_card_unless_cpu_is_asked():

@@ -101,6 +101,7 @@ def test_port_imports_nothing_of_jax():
     assert res.returncode == 0, res.stderr
     pkg = "bicubic_interpolation_model_tpu_torch."
     for name in ("core.kernels", "core.plan", "ops.resize", "ops.mxu",
-                 "ops.phase", "serving"):
+                 "ops.phase", "ops.adaptive", "ops.adaptive_fused",
+                 "ops.banded", "ops.downsample", "serving"):
         assert pkg + name in mods
-    assert len(mods) >= 21
+    assert len(mods) >= 25

@@ -1,20 +1,24 @@
-"""The port's classical ``Upscaler`` (bicubic_interpolation_model_tpu_torch/
-serving.py) on the CPU against the JAX package's ``Upscaler`` and the
-float64 oracle.
+"""The port's ``Upscaler`` (bicubic_interpolation_model_tpu_torch/
+serving.py; the classical methods and adaptive bicubic) on the CPU against
+the JAX package's ``Upscaler`` and the float64 oracles.
 
 Tolerances: ≤1 u8 LSB from ``resize_oracle`` and from the JAX ``Upscaler``
 on the same frames (f32 on both sides, sums in another order; the JAX
 ``pallas_mxu`` route's compensated-bf16 residual may put up to 2% of bytes
 on the other side of a rounding boundary); ``nearest`` bit-equal; bucketed
-output equal to unbucketed byte for byte."""
+output equal to unbucketed byte for byte; ``method="adaptive"`` ≤1 u8 LSB
+from ``adaptive_bicubic_oracle`` and from the JAX ``Upscaler``."""
 
 import numpy as np
 import pytest
 import torch
 
 from bicubic_interpolation_model_tpu import serving as jserving
-from bicubic_interpolation_model_tpu.core.oracle import resize_oracle
+from bicubic_interpolation_model_tpu.core.oracle import (
+    adaptive_bicubic_oracle, resize_oracle)
 from bicubic_interpolation_model_tpu_torch.serving import Upscaler
+
+from test_torch_adaptive import all_class_frame
 
 
 def _image(seed, h, w, c=4):
@@ -219,9 +223,101 @@ def test_call_batch_and_stream_take_one_route(impl):
             up.batch(np.zeros((2, 4, 4, 5), np.uint8))
 
 
-def test_adaptive_is_not_ported_and_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        Upscaler(scale=4, method="adaptive", device="cpu")
+def _mosaic(seed, h, w, c=4):
+    """A frame that reaches all three region classes of adaptive bicubic."""
+    img = all_class_frame("mosaic", h, w, c, seed=seed)
+    if c == 4:
+        img[..., 3] = 255
+    return img
+
+
+def test_adaptive_matches_oracle_and_jax_upscaler():
+    """``method="adaptive"`` is served: ≤1 u8 LSB from the float64 oracle
+    and from the JAX ``Upscaler`` on a frame of all three region classes,
+    with ``bucket`` changing nothing."""
+    img = _mosaic(60, 10, 12)
+    want = adaptive_bicubic_oracle(img, 4.0)
+    ref = jserving.Upscaler(scale=4, method="adaptive")(img)
+    for up in (Upscaler(scale=4, method="adaptive", device="cpu"),
+               Upscaler(scale=4, method="adaptive", bucket=16, device="cpu")):
+        got = up(img)
+        assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+        assert got.shape == want.shape == (40, 48, 4)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    np.testing.assert_array_equal(
+        got, Upscaler(scale=4, method="adaptive", device="cpu")(img))
+    dev = up(torch.from_numpy(img), fetch=False)
+    assert isinstance(dev, torch.Tensor) and dev.dtype == torch.uint8
+    np.testing.assert_array_equal(dev.numpy(), got)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas_phase", "pallas", "jnp"])
+def test_adaptive_call_batch_and_stream_take_one_route(impl):
+    """Every entry point hands adaptive frames to ``ops/adaptive``: the same
+    frames give the same bytes by ``__call__``, ``batch`` and ``stream``
+    (which never groups adaptive frames), RGB and 5-channel frames
+    included; ``pallas_phase`` means ``auto``."""
+    up = Upscaler(scale=3, method="adaptive", impl=impl, device="cpu")
+    shapes = [(9, 7, 4), (9, 7, 3)]
+    if impl not in ("pallas",):
+        shapes.append((6, 7, 5))
+    for i, shape in enumerate(shapes):
+        imgs = np.stack([_mosaic(70 + i + k, *shape) for k in range(3)])
+        singles = [up(f) for f in imgs]
+        assert singles[0].shape == (3 * shape[0], 3 * shape[1], shape[2])
+        want = adaptive_bicubic_oracle(imgs[0], 3.0)
+        assert np.abs(singles[0].astype(int) - want.astype(int)).max() <= 1
+        b = up.batch(imgs)
+        assert isinstance(b, np.ndarray) and b.shape == (3,) + want.shape
+        assert up.batch(imgs, fetch=False).dtype == torch.uint8
+        streamed = list(up.stream(list(imgs), microbatch=3))
+        for k in range(3):
+            np.testing.assert_array_equal(b[k], singles[k])
+            np.testing.assert_array_equal(streamed[k], singles[k])
+    if impl == "pallas":
+        with pytest.raises(ValueError, match="3 or 4 channels"):
+            up(np.zeros((4, 4, 5), np.uint8))
+    ref = jserving.Upscaler(scale=3, method="adaptive").batch(imgs[:2])
+    assert np.abs(up.batch(imgs[:2]).astype(int)
+                  - np.asarray(ref).astype(int)).max() <= 1
+
+
+def test_adaptive_stream_never_groups_frames(monkeypatch):
+    up = Upscaler(scale=2, method="adaptive", device="cpu")
+    monkeypatch.setattr(Upscaler, "batch", lambda *a, **k: pytest.fail(
+        "stream grouped adaptive frames"))
+    frames = [_mosaic(80 + i, 8, 8) for i in range(4)]
+    for mode in ("auto", 4, None):
+        outs = list(up.stream(iter(frames), microbatch=mode))
+        assert len(outs) == 4
+        np.testing.assert_array_equal(outs[2], up(frames[2]))
+    ref = list(jserving.Upscaler(scale=2, method="adaptive").stream(frames))
+    assert np.abs(outs[3].astype(int) - ref[3].astype(int)).max() <= 1
+
+
+def test_adaptive_rejects_non_integer_scale():
+    with pytest.raises(ValueError, match="integer"):
+        Upscaler(scale=2.5, method="adaptive", device="cpu")(
+            np.zeros((8, 8, 4), np.uint8))
+    with pytest.raises(ValueError, match="integer"):
+        Upscaler(scale=2.5, method="adaptive", device="cpu").batch(
+            np.zeros((2, 8, 8, 4), np.uint8))
+    with pytest.raises(ValueError, match="integer"):
+        jserving.Upscaler(scale=2.5, method="adaptive")(
+            np.zeros((8, 8, 4), np.uint8))
+
+
+def test_banded_route_forced():
+    up = Upscaler(scale=4, impl="pallas", device="cpu")
+    img = _image(42, 12, 10)
+    out = up(img)
+    _parity(out, resize_oracle(img, 4.0, "bicubic"))
+    b = up.batch(np.stack([img, _image(43, 12, 10)]))
+    np.testing.assert_array_equal(b[0], out)
+    assert len(up._weight_cache) == 1          # per-size device bands
+    with pytest.raises(ValueError, match="integer upscale"):
+        Upscaler(scale=2.5, impl="pallas", device="cpu")(img)
 
 
 def test_needs_a_card_unless_cpu_is_asked():
