@@ -6,14 +6,15 @@ in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
 kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
 use). It imports nothing of the JAX package.
 
-Ported so far (learned-SR serving, classical resize serving and adaptive
-bicubic serving):
+Ported so far (learned-SR serving, classical resize serving, adaptive
+bicubic serving and band/batch-sharded serving):
 
 core        interpolation kernels and axis plans (NumPy, float64, host)
 train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
 models      WeightPredictor, PixelShuffleUpsample, learned SR inference
 ops         offsets / GT weights / apply-weights, the fused packed tail
-            (CUDA kernel A), the planar→RGBA32 interleave (CUDA kernel B);
+            (CUDA kernel A) and the tail on a precomputed merged map (CUDA
+            kernel G), the planar→RGBA32 interleave (CUDA kernel B);
             resize (gather / matmul / phase and the dispatch), the
             plan-driven resize at any rational scale (CUDA kernel C,
             ``ops/mxu``), the phase-FMA resize at integer scales (CUDA
@@ -23,6 +24,10 @@ ops         offsets / GT weights / apply-weights, the fused packed tail
             CUDA kernel E, ``ops/adaptive_fused``); antialiased downsample
 evaluation  checkpoint loading by ``meta.json``
 serving     ModelUpscaler, Upscaler
+parallel    a named grid of devices (``Mesh``, which may repeat a device),
+            band-sharded learned / classical / adaptive SR of one frame
+            (kernels G, C, E per band) and batch-sharded resize (kernel D
+            per shard) in one process; multi-host process-group setup
 runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``
 
 Entry points take ``device=`` and default to ``"cuda"``; with no card they

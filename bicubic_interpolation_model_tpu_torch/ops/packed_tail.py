@@ -1,16 +1,23 @@
-"""Fused packed tail of the WeightPredictor forward (CUDA kernel A).
+"""Packed tail of the WeightPredictor forward (CUDA kernels A and G).
 
-From the conv_in/conv_res features, one pass computes the phase-packed
-merged map (upsample + per-phase offset constant + sigmoid attention gate),
-the phase-decomposed 3x3 ``conv_out``, tanh, the 16-tap apply over each
-LR 4x4 neighbourhood, round-half-even and u8 channel packing. The merged map
-(363 MB in f32 at a 348x510 frame) never reaches device memory.
-
-Counterpart of ``bicubic_interpolation_model_tpu/ops/pallas_packed_tail.py``
-(``packed_tail_fused``); the kernel is ``csrc/packed_tail.cu``. Its plain
-PyTorch version, :func:`packed_tail_fused_reference`, is the graph chain
+:func:`packed_tail_fused` (kernel A, ``csrc/packed_tail.cu``): from the
+conv_in/conv_res features, one pass computes the phase-packed merged map
+(upsample + per-phase offset constant + sigmoid attention gate), the
+phase-decomposed 3x3 ``conv_out``, tanh, the 16-tap apply over each LR 4x4
+neighbourhood, round-half-even and u8 channel packing. The merged map (363
+MB in f32 at a 348x510 frame) never reaches device memory. Its plain PyTorch
+version, :func:`packed_tail_fused_reference`, is the graph chain
 ``_packed_merged_map`` + ``_packed_phase_tail`` + round + pack of
 ``models/inference``.
+
+:func:`packed_tail` (kernel G, ``csrc/packed_tail_map.cu``): the same tail
+fed a precomputed merged map, with single-frame zero padding
+(``halo="zero"``) or the real neighbour rows of a band
+(``halo="rows"``, the band-sharded learned path). Its plain version is
+:func:`packed_tail_reference`.
+
+Counterparts of ``bicubic_interpolation_model_tpu/ops/pallas_packed_tail.py``
+(``packed_tail_fused``, ``packed_tail_pallas``).
 
 Output layouts: ``"planar"`` is the kernel's ``[S, h*S, w]`` uint32 (column
 phase planar, row phases interleaved, channel bytes little-endian; unpadded);
@@ -24,6 +31,7 @@ import torch
 
 from ..runtime import build
 from .interleave import interleave_planar_u32
+from .learned import _apply_round
 from .planar import pack_rgba32, unpack_planar
 
 _F_IN = 32              # the kernel's conv feature width (WeightPredictor)
@@ -176,3 +184,142 @@ def packed_tail_fused(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b,
 
 
 packed_tail_fused.launches = 0
+
+
+def _tail_graph(m, lr_f32, kout, bout, s, halo, opaque_alpha=False):
+    """``_packed_phase_tail`` on a merged map [rows, w, S, S, 2F] and LR
+    pixels [lr_rows, w, c], padded as ``_packed_tail_dispatch`` pads them:
+    ``halo="zero"`` zero-pads the map by one row and column on each side and
+    edge-pads the LR (1 leading, 2 trailing); ``halo="rows"`` pads columns
+    only (the caller's rows are real). Float [h*S, w*S, c]."""
+    from ..models.inference import _packed_phase_tail
+    rows, w = m.shape[:2]
+    c = lr_f32.shape[-1]
+    h, lead = (rows - 2, 0) if halo == "rows" else (rows, 1)
+    mp = torch.nn.functional.pad(m, (0, 0, 0, 0, 0, 0, 1, 1, lead, lead))
+    chw = torch.nn.functional.pad(lr_f32.float().movedim(-1, 0)[None],
+                                  (1, 2, lead, 2 * lead), mode="replicate")
+    return _packed_phase_tail(mp[None], chw, kout, bout, s, c, h, w,
+                              opaque_alpha=opaque_alpha and c == 4)[0]
+
+
+def packed_tail_reference(m, lr_f32, kout, bout, *, scale: int = 4,
+                          opaque_alpha: bool = False,
+                          halo: str = "zero") -> torch.Tensor:
+    """The plain PyTorch version of kernel G: merged map [h(+2), w, S, S,
+    2F] and LR pixels [h(+3), w, c] → planar uint32 [S, h*S, w].
+
+    The graph chain ``_packed_phase_tail`` + round + pack on the map padded
+    as the kernel sees it (:func:`_tail_graph`). A bf16 map computes in f32
+    on the map's values and on ``kout`` rounded to bf16 (the TPU kernel's
+    matmuls: bf16 operands, f32 accumulation)."""
+    s = int(scale)
+    if m.dtype == torch.bfloat16:
+        m, kout = m.float(), kout.to(torch.bfloat16)
+    out = _tail_graph(m, lr_f32, kout.float(), bout.float(), s, halo,
+                      opaque_alpha)
+    hs, ws = out.shape[:2]
+    words = pack_rgba32(_apply_round(out).to(torch.uint8))      # [hS, wS]
+    return words.reshape(hs, ws // s, s).permute(2, 0, 1).contiguous()
+
+
+def _check_map(m, lr_f32, kout, bout, s, halo):
+    if halo not in ("zero", "rows"):
+        raise ValueError(f"halo must be 'zero' or 'rows', got {halo!r}")
+    if m.dim() != 5 or lr_f32.dim() != 3:
+        raise ValueError("packed_tail expects m [h, w, S, S, 2F] and lr "
+                         f"[h, w, c]; got {tuple(m.shape)}, "
+                         f"{tuple(lr_f32.shape)}")
+    twof = m.shape[-1]
+    if not packed_tail_supported(s, twof, lr_f32.shape[-1]):
+        raise ValueError(f"packed tail needs S*2F==128, c<=4; got S={s}, "
+                         f"2F={twof}, c={lr_f32.shape[-1]}")
+    h = m.shape[0] - 2 if halo == "rows" else m.shape[0]
+    lr_rows = h + 3 if halo == "rows" else h
+    if halo == "rows" and lr_f32.shape[0] != lr_rows:
+        raise ValueError(f"halo='rows' expects lr rows == h+3 ({lr_rows}), "
+                         f"got {lr_f32.shape[0]}")
+    if tuple(m.shape[2:4]) != (s, s) or h < 0 or tuple(
+            lr_f32.shape[:2]) != (lr_rows, m.shape[1]):
+        raise ValueError(f"m {tuple(m.shape)} and lr {tuple(lr_f32.shape)} "
+                         f"do not describe one {h}-row frame at scale {s}")
+    if m.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the merged map must be float32 or bfloat16, got "
+                         f"{m.dtype}")
+    for name, t, shape in (("kout", kout, (3, 3, twof, _N_OUT)),
+                           ("bout", bout, (_N_OUT,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    devs = {t.device for t in (m, lr_f32, kout, bout)}
+    if len(devs) != 1:
+        raise ValueError(f"packed_tail inputs on several devices: {devs}")
+    return h
+
+
+def _launch_map(m, lr_f32, kout, bout, h, s, opaque_alpha, halo):
+    w, c = m.shape[1], lr_f32.shape[-1]
+    bf16 = m.dtype == torch.bfloat16
+    m = m.contiguous()
+    if m.data_ptr() % 16:           # the kernel reads 16 bytes at a time
+        m = m.clone()
+    kout = (kout.to(torch.bfloat16) if bf16 else kout).float().contiguous()
+    bout = bout.float().contiguous()
+    lr = lr_f32.float().contiguous()
+    out = torch.empty((s, h * s, w), dtype=torch.uint32, device=m.device)
+    if out.numel():
+        lib = build.library()
+        with torch.cuda.device(m.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.bim_packed_tail_map(
+                m.data_ptr(), int(bf16), lr.data_ptr(), kout.data_ptr(),
+                bout.data_ptr(), out.data_ptr(), h, w, c,
+                int(halo == "rows"), int(opaque_alpha), stream)
+        build.check(rc, "packed_tail")
+        packed_tail.launches += 1
+    return out
+
+
+def packed_tail(m, lr_f32, kout, bout, *, scale: int = 4,
+                layout: str = "hwc", opaque_alpha: bool = False,
+                halo: str = "zero"):
+    """conv_out + tanh + 16-tap apply + round on a precomputed merged map.
+
+    m:      [h, w, S, S, 2F] merged packed map (attended upsample features
+            and the per-phase offset constant; a leading batch of one is
+            dropped), float32 or bfloat16 (bf16 rounds ``kout`` to bf16 and
+            accumulates in f32, as the TPU kernel's matmuls run in m.dtype)
+    lr_f32: [h, w, c] LR pixels as float (0..255), c <= 4
+    kout:   [3, 3, 2F, 16] conv_out kernel;  bout: [16] bias
+    halo:   "zero": one frame, the map is zero and the LR clamped outside
+            it. "rows": a band of the band-sharded path, whose caller passes
+            real neighbour rows: m spans band rows [-1, h+1) ([h+2, w, ...])
+            and lr_f32 [-1, h+2) ([h+3, w, c]); only columns are padded.
+    layout: "hwc" (uint8 [h*S, w*S, c]), "hwc32" (uint32 RGBA32 words
+            [h*S, w*S] through kernel B) or "planar" (uint32 [S, h*S, w]).
+
+    On CUDA tensors this launches kernel G (or raises); on CPU tensors it
+    runs :func:`packed_tail_reference`.
+    """
+    if layout not in ("hwc", "hwc32", "planar"):
+        raise ValueError(f"unknown layout {layout!r}")
+    s = int(scale)
+    if m.dim() == 6 and m.shape[0] == 1:
+        m = m[0]
+    h = _check_map(m, lr_f32, kout, bout, s, halo)
+    if m.device.type == "cpu":
+        planar = packed_tail_reference(m, lr_f32, kout, bout, scale=s,
+                                       opaque_alpha=opaque_alpha, halo=halo)
+    elif m.device.type == "cuda":
+        planar = _launch_map(m, lr_f32, kout, bout, h, s,
+                             opaque_alpha and lr_f32.shape[-1] == 4, halo)
+    else:
+        raise ValueError(f"unsupported device {m.device}")
+    if layout == "planar":
+        return planar
+    if layout == "hwc32":
+        return interleave_planar_u32(planar)
+    return unpack_planar(planar, h, m.shape[1], s, lr_f32.shape[-1])
+
+
+packed_tail.launches = 0

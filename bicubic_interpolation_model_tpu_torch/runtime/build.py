@@ -32,6 +32,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "bim_packed_tail_fused": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+    "bim_packed_tail_map": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bim_interleave_planar_u32": [_P, _P, _I, _I, _I, _P],
     "bim_resize_mxu": [_P, _I, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -7,10 +7,13 @@ Builds the hand-written CUDA kernels from
 PyTorch version on the card, serves frames through the port's
 ``ModelUpscaler`` (learned SR on the committed WeightPredictor checkpoints
 at 348x510 -> 4x RGBA), through its classical ``Upscaler`` (1080x1920 RGBA
--> 4x, 2.5x and the forced phase route) and through
+-> 4x, 2.5x and the forced phase route), through
 ``Upscaler(method="adaptive")`` and ``resize(impl="pallas")`` (1080x1920
-RGBA -> 4x), checks launch counts and outputs, and times the kernels, their
-plain versions and the served frames.
+RGBA -> 4x) and through the band- and batch-sharded paths of ``parallel/``
+on meshes of 2 and 4 bands on the one card (learned at 348x510, classical
+and adaptive at 1080x1920, a batch of 8 frames), checks launch counts and
+outputs, and times the kernels, their plain versions and the served
+frames.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -83,37 +86,37 @@ def rotating(fn, inputs):
     return lambda: fn(*next(it))
 
 
-def device_ms(fn, n=20, warmup=3, kernels_per_call=None):
-    """Device time per call: the summed durations of the kernels and copies
-    that ``n`` calls put on the card, over ``n``, from one torch.profiler
-    cycle (host launch cost excluded). With ``kernels_per_call`` (a wrapper
-    that launches that many kernels and nothing else) the trace must hold
-    exactly ``n`` times that many device events: a trace that lost or
-    gained events is taken again, and after three such traces this raises.
-    Raises too if the trace holds no device time: a host clock's reading is
-    never printed under a device time's name."""
+def device_ms(fn, n=20, warmup=3, one_kernel=False):
+    """Device time per call from one torch.profiler trace of ``n`` calls
+    (host launch cost excluded). With ``one_kernel`` (a wrapper that
+    launches exactly one kernel per call and nothing else) it is the mean
+    duration of the trace's device events: the profiler sometimes drops an
+    event (cause unknown), and the mean of the launches the trace holds is
+    still the time of one launch; a trace with another count than ``n`` is
+    reported on stderr. Otherwise it is the summed durations of all device
+    events over ``n``. Raises if the trace holds no device time: a host
+    clock's reading is never printed under a device time's name."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        durations = [e.time_range.end - e.time_range.start
-                     for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(durations) <= 0:
-            raise RuntimeError("the profiler's trace holds no device time")
-        if kernels_per_call in (None, len(durations) / n):
-            return sum(durations) / 1e3 / n
-        print(f"device_ms: the trace holds {len(durations)} device events, "
-              f"{n * kernels_per_call} were expected", file=sys.stderr,
-              flush=True)
-    raise RuntimeError("three profiler traces in a row held another number "
-                       "of device events than the calls launched kernels")
+    durations = [e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    if sum(durations) <= 0:
+        raise RuntimeError("the profiler's trace holds no device time")
+    if not one_kernel:
+        return sum(durations) / 1e3 / n
+    if len(durations) != n:
+        print(f"device_ms: the trace holds {len(durations)} device events "
+              f"of {n} launches; the mean is over those it holds",
+              file=sys.stderr, flush=True)
+    return sum(durations) / 1e3 / len(durations)
 
 
 def diff_u8(a, b):
@@ -199,6 +202,83 @@ def adaptive_bound(b, h, w, c, s, texture_share):
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), nbytes, flops
+
+
+def map_case(h, w, c, halo, dev, seed):
+    """Kernel G's operands made on the card from a seed: a merged map
+    [h(+2), w, 4, 4, 32] (band rows [-1, h+1) with ``halo="rows"``), LR
+    pixels [h(+3), w, c], conv_out's kernel and bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows, lr_rows = (h + 2, h + 3) if halo == "rows" else (h, h)
+    m = torch.randn((rows, w, 4, 4, 32), generator=g, device=dev) * 0.5
+    lr = torch.randint(0, 256, (lr_rows, w, c), generator=g,
+                       device=dev).float()
+    kout = torch.randn((3, 3, 32, 16), generator=g, device=dev) * 0.05
+    bout = torch.randn((16,), generator=g, device=dev) * 0.25
+    return m, lr, kout, bout
+
+
+def map_bound(h, w, c, halo, m_bytes=4):
+    """Least time of kernel G on h x w LR pixels: bytes (the merged map,
+    the LR pixels and the output words, each moved once) over the HBM rate,
+    useful f32 FLOPs over the f32 peak: conv_out over all 32 lanes of the
+    map (its offset lanes are data here), 9 taps x 32 x 16 multiply-adds
+    per output phase, and 16 x 16 per channel for the tap apply."""
+    rows, lr_rows = (h + 2, h + 3) if halo == "rows" else (h, h)
+    nbytes = rows * w * 512 * m_bytes + lr_rows * w * c * 4 + h * w * 16 * 4
+    flops = 2 * h * w * (16 * 9 * 32 * 16 + 16 * 16 * c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, flops
+
+
+def check_kernel_g(pt, dev, emit_fn):
+    """Kernel G against its plain version on the card: single frames
+    (``halo="zero"``) and bands of real rows (``halo="rows"``: 87 and 174
+    rows of a 348x510 frame, ragged small bands); f32, bf16 maps, opaque
+    alpha and the three layouts. Returns the largest f32 deviation."""
+    worst = 0
+    cases = ([(h, w, c, "zero") for h, w, c in GEOMETRIES]
+             + [(87, 510, 4, "rows"), (174, 510, 4, "rows"),
+                (11, 21, 3, "rows"), (5, 9, 1, "rows")])
+    for i, (h, w, c, halo) in enumerate(cases):
+        m, lr, kout, bout = map_case(h, w, c, halo, dev, 2000 + i)
+        run = lambda mm, ll, **kw: pt.packed_tail(mm, ll, kout, bout,
+                                                  halo=halo, **kw)
+        ref = lambda mm, ll, **kw: pt.packed_tail_reference(
+            mm, ll, kout, bout, halo=halo, **kw).view(torch.uint8)
+        got = run(m, lr, layout="planar")
+        torch.cuda.synchronize()
+        mx, share = diff_u8(got.view(torch.uint8), ref(m, lr))
+        std = float(got.view(torch.uint8).float().std())
+        mb = m.to(torch.bfloat16)
+        mxb, shareb = diff_u8(run(mb, lr, layout="planar").view(torch.uint8),
+                              ref(mb, lr))
+        hwc = run(m, lr)
+        forms = torch.equal(pt.unpack_planar(got, h, w, 4, c), hwc)
+        res = {"phase": "kernel_g", "geometry": [h, w, c], "halo": halo,
+               "f32_max": mx, "f32_share": share, "std": round(std, 3),
+               "bf16_max": mxb, "bf16_share": shareb}
+        ok = mx <= 1 and share < 1e-3 and std > 0 and mxb <= 2
+        if c == 4:
+            words = run(m, lr, layout="hwc32")
+            forms = forms and torch.equal(
+                words.contiguous().view(torch.uint8).reshape(hwc.shape), hwc)
+            olr = lr.clone()
+            olr[..., 3] = 255.0
+            mxo, _ = diff_u8(run(m, olr, layout="planar", opaque_alpha=True)
+                             .view(torch.uint8), ref(m, olr,
+                                                     opaque_alpha=True))
+            res["opaque_alpha_max"] = mxo
+            ok = ok and mxo <= 1
+        res["layouts_agree"] = forms
+        emit_fn(res)
+        if not (ok and forms):
+            raise AssertionError(f"kernel G disagrees with its plain "
+                                 f"version: {res}")
+        worst = max(worst, mx)
+    return worst
 
 
 def u8_frames(rng, *shape):
@@ -516,6 +596,9 @@ def main() -> int:
         adaptive_resize, luma_bt709, region_classes)
     from bicubic_interpolation_model_tpu_torch.ops.resize import (
         resize, round_u8)
+    from bicubic_interpolation_model_tpu_torch.parallel import batch as bp
+    from bicubic_interpolation_model_tpu_torch.parallel import spatial as sp
+    from bicubic_interpolation_model_tpu_torch.parallel.mesh import Mesh
     from bicubic_interpolation_model_tpu_torch.runtime import build
     from bicubic_interpolation_model_tpu_torch.serving import (
         ModelUpscaler, Upscaler)
@@ -594,6 +677,7 @@ def main() -> int:
     d_err = check_kernel_d(phase, dev, emit)
     e_err = check_kernel_e(adf, ilv, dev, emit)
     f_err = check_kernel_f(banded, mxu, dev, emit)
+    g_err = check_kernel_g(pt, dev, emit)
 
     # 5. main path: ModelUpscaler on the committed checkpoint
     up = ModelUpscaler(str(ROOT / "model" / "wp-1e-3-120"))
@@ -601,16 +685,19 @@ def main() -> int:
     frames = rng.integers(0, 256, (10,) + FRAME + (4,), dtype=np.uint8)
     frames[..., 3] = 255
     pt.packed_tail_fused.launches = 0
+    pt.packed_tail.launches = 0
     ilv.interleave_planar_u32.launches = 0
     outs = [up(f) for f in frames[:4]]
     outs += list(up.stream(iter(frames[4:8])))
     outs_b = up.batch(frames[8:10])
     torch.cuda.synchronize()
     launches = {"packed_tail_fused": pt.packed_tail_fused.launches,
+                "packed_tail": pt.packed_tail.launches,
                 "interleave_planar_u32": ilv.interleave_planar_u32.launches}
     emit({"phase": "main_path", "requests": 8, "batch": 2,
           "launches": launches})
-    if launches != {"packed_tail_fused": 9, "interleave_planar_u32": 8}:
+    if launches != {"packed_tail_fused": 9, "packed_tail": 0,
+                    "interleave_planar_u32": 8}:
         raise AssertionError(f"main path did not run the kernels as "
                              f"expected: {launches}")
     hw = (FRAME[0] * 4, FRAME[1] * 4, 4)
@@ -839,6 +926,109 @@ def main() -> int:
     del out_f
     torch.cuda.empty_cache()
 
+    # 5d. the band-sharded learned path: learned_resize_spatial_sharded on
+    # the committed checkpoints at the full 348x510 RGBA frame, meshes of 2
+    # and 4 bands on the one card (kernel G once per band)
+    meshes = {n: Mesh([dev] * n, ("spatial",)) for n in (2, 4)}
+    pt.packed_tail.launches = 0
+    pt.packed_tail_fused.launches = 0
+    sharded = {n: sp.learned_resize_spatial_sharded(
+        up.model, up.params, frames[0], 4, mesh=meshes[n]) for n in (2, 4)}
+    sharded_a = sp.learned_resize_spatial_sharded(
+        up_a.model, up_a.params, frames[0], 4, mesh=meshes[4])
+    torch.cuda.synchronize()
+    launches_g = {"packed_tail": pt.packed_tail.launches,
+                  "packed_tail_fused": pt.packed_tail_fused.launches}
+    emit({"phase": "sharded_learned", "frame": [*FRAME, 4],
+          "bands": [2, 4], "adaptive_checkpoint_bands": 4,
+          "launches": launches_g})
+    if launches_g != {"packed_tail": 2 + 4 + 4, "packed_tail_fused": 0}:
+        raise AssertionError(f"the sharded learned path did not launch "
+                             f"kernel G once per band: {launches_g}")
+    res = {"phase": "sharded_learned_check"}
+    for key, n, got, model, single in (
+            ("wp_2_bands", 2, sharded[2], up, outs[0]),
+            ("wp_4_bands", 4, sharded[4], up, outs[0]),
+            ("wp_adaptive_4_bands", 4, sharded_a, up_a, oa)):
+        graph = sp.learned_resize_spatial_sharded(
+            model.model, model.params, frames[0], 4, mesh=meshes[n],
+            tail="graph")
+        vs_graph = diff_u8(got, graph)
+        vs_single = diff_u8(got, torch.as_tensor(single).to(dev))
+        res[key] = {"vs_sharded_graph_max": vs_graph[0],
+                    "vs_sharded_graph_share": vs_graph[1],
+                    "vs_model_upscaler_max": vs_single[0],
+                    "vs_model_upscaler_share": vs_single[1],
+                    "std": round(float(got.float().std()), 3)}
+        if (got.shape != hw or vs_graph[0] > 1 or vs_graph[1] >= 1e-3
+                or vs_single[0] > 2 or float(got.float().std()) == 0):
+            raise AssertionError(f"sharded learned {key}: {res[key]}")
+        g_err = max(g_err, vs_graph[0])
+    emit(res)
+    del sharded, sharded_a
+
+    # 5e. the band-sharded classical path: 1080x1920 RGBA -> 4x bicubic
+    # over 4 bands, kernel C per band, byte-equal to the single-frame kernel
+    mxu.resize_mxu.launches = 0
+    sc = sp.resize_spatial_sharded(hd[0], 4, mesh=meshes[4], impl="mxu")
+    torch.cuda.synchronize()
+    launches_sc = mxu.resize_mxu.launches
+    sc_equal = torch.equal(sc, mxu.resize_mxu(torch.from_numpy(hd[0]).to(dev),
+                                              4, "bicubic"))
+    # the einsum bands on a 480-column crop (dense column matrices: the
+    # full width would take seconds), against the kernel's bands
+    crop = np.ascontiguousarray(hd[0][:, :480])
+    ein = diff_u8(sp.resize_spatial_sharded(crop, 4, mesh=meshes[4],
+                                            impl="einsum"),
+                  sp.resize_spatial_sharded(crop, 4, mesh=meshes[4],
+                                            impl="mxu"))
+    emit({"phase": "sharded_classical", "frame": [*HD, 4], "bands": 4,
+          "launches": {"resize_mxu": launches_sc},
+          "equal_to_single_frame_kernel": sc_equal,
+          "einsum_frame": [HD[0], 480, 4], "einsum_vs_mxu_max": ein[0],
+          "einsum_vs_mxu_share": ein[1]})
+    if launches_sc != 4 or not sc_equal or ein[0] > 1 or ein[1] >= 1e-3:
+        raise AssertionError("the sharded classical path disagrees with "
+                             "the single-frame kernel")
+    del sc
+
+    # 5f. the band-sharded adaptive path: an all-class 1080x1920 RGBA frame
+    # -> 4x over 4 bands, kernel E per band, byte-equal to the single frame
+    adf.adaptive_resize_fused.launches = 0
+    sa = sp.adaptive_resize_spatial_sharded(ad[0], 4, mesh=meshes[4])
+    torch.cuda.synchronize()
+    launches_sa = adf.adaptive_resize_fused.launches
+    sa_equal = torch.equal(sa, adf.adaptive_resize_fused(ad_dev[0], 4))
+    sa_planar = torch.equal(
+        sp.adaptive_resize_spatial_sharded(ad[0], 4, mesh=meshes[4],
+                                           layout="planar"),
+        adf.adaptive_resize_fused(ad_dev[0], 4, layout="planar"))
+    emit({"phase": "sharded_adaptive", "frame": [*HD, 4], "bands": 4,
+          "launches": {"adaptive_resize_fused": launches_sa},
+          "hwc_equal_to_single_frame_kernel": sa_equal,
+          "planar_equal_to_single_frame_kernel": sa_planar})
+    if launches_sa != 4 or not (sa_equal and sa_planar):
+        raise AssertionError("the sharded adaptive path disagrees with the "
+                             "single-frame kernel")
+    del sa
+
+    # 5g. the batch-sharded path: 8 frames of 1080x1920 RGBA -> 4x over a
+    # 4-shard data axis, kernel D per shard
+    phase.resize_phase.launches = 0
+    bo = bp.resize_batch_sharded(hd[:8], 4, mesh=Mesh([dev] * 4, ("data",)))
+    torch.cuda.synchronize()
+    launches_bo = phase.resize_phase.launches
+    bo_equal = all(torch.equal(bo[i], phase.resize_phase(
+        torch.from_numpy(hd[i]).to(dev), 4)) for i in range(8))
+    emit({"phase": "batch_sharded", "frames": 8, "frame": [*HD, 4],
+          "shards": 4, "launches": {"resize_phase": launches_bo},
+          "equal_to_single_frame_kernel": bo_equal})
+    if launches_bo != 4 or not bo_equal:
+        raise AssertionError("the sharded batch path disagrees with kernel "
+                             "D")
+    del bo
+    torch.cuda.empty_cache()
+
     # 6. times at the main path's shapes
     # inputs rotate over 4 (A) or 8 (B) copies, 91 MB each way, so every
     # call reads from HBM and not from the 50 MB L2
@@ -863,9 +1053,9 @@ def main() -> int:
     b_call = time_ms(run_b, iters=50)
     b_plain_call = time_ms(run_b_plain, iters=50)
     b_lib_call = time_ms(run_b_lib, iters=50)
-    a_ms = device_ms(run_a, kernels_per_call=1)
+    a_ms = device_ms(run_a, one_kernel=True)
     a_plain = device_ms(run_a_plain, n=5)
-    b_ms = device_ms(run_b, kernels_per_call=1)
+    b_ms = device_ms(run_b, one_kernel=True)
     b_plain = device_ms(run_b_plain)
     b_lib = device_ms(run_b_lib)
     lr_dev = torch.as_tensor(frames[0]).to(dev)
@@ -932,10 +1122,10 @@ def main() -> int:
     run_lib = rotating(matmul_resize, c_in)
     c_call = time_ms(run_c, iters=10)
     d_call = time_ms(run_d, iters=10)
-    c_ms = device_ms(run_c, kernels_per_call=1)
-    d_ms = device_ms(run_d, kernels_per_call=1)
-    d_planar_ms = device_ms(run_d_planar, kernels_per_call=1)
-    c25_ms = device_ms(run_c25, kernels_per_call=1)
+    c_ms = device_ms(run_c, one_kernel=True)
+    d_ms = device_ms(run_d, one_kernel=True)
+    d_planar_ms = device_ms(run_d_planar, one_kernel=True)
+    c25_ms = device_ms(run_c25, one_kernel=True)
     c_plain = device_ms(run_c_plain, n=3, warmup=1)
     d_plain = device_ms(run_d_plain, n=3, warmup=1)
     lib_ms = device_ms(run_lib, n=5, warmup=2)
@@ -1007,10 +1197,10 @@ def main() -> int:
         x, b_row, b_colt, 4, left_f), c_in)
     e_call = time_ms(run_e, iters=10)
     f_call = time_ms(run_f, iters=10)
-    e_ms = device_ms(run_e, kernels_per_call=1)
-    e_planar_ms = device_ms(run_e_planar, kernels_per_call=1)
-    e_opaque_ms = device_ms(run_e_opaque, kernels_per_call=1)
-    f_ms = device_ms(run_f, kernels_per_call=1)
+    e_ms = device_ms(run_e, one_kernel=True)
+    e_planar_ms = device_ms(run_e_planar, one_kernel=True)
+    e_opaque_ms = device_ms(run_e_opaque, one_kernel=True)
+    f_ms = device_ms(run_f, one_kernel=True)
     e_plain = device_ms(run_e_plain, n=2, warmup=1)
     e_graph = device_ms(run_e_graph, n=2, warmup=1)
     f_plain_ms = device_ms(run_f_plain, n=3, warmup=1)
@@ -1048,6 +1238,58 @@ def main() -> int:
               "memcpy_dtoh_ms_per_frame": "Memcpy DtoH",
               "memcpy_htod_ms_per_frame": "Memcpy HtoD"})})
 
+    # 6d. times of kernel G at 348x510 (halo="zero") and on one band of 4
+    # (halo="rows"), inputs rotated over two copies (two maps are 727 MB,
+    # two band maps 186 MB); the sharded learned frame beside ModelUpscaler
+    h, w = FRAME
+    hb = h // 4
+    g_in = [map_case(h, w, 4, "zero", dev, 70 + k) for k in range(2)]
+    gb_in = [map_case(hb, w, 4, "rows", dev, 80 + k) for k in range(2)]
+    kout_g, bout_g = g_in[0][2], g_in[0][3]
+    run_g = rotating(lambda m, lr: pt.packed_tail(
+        m, lr, kout_g, bout_g, layout="planar"), [a[:2] for a in g_in])
+    run_gb = rotating(lambda m, lr: pt.packed_tail(
+        m, lr, kout_g, bout_g, layout="planar", halo="rows"),
+        [a[:2] for a in gb_in])
+    run_g_plain = rotating(lambda m, lr: pt.packed_tail_reference(
+        m, lr, kout_g, bout_g), [a[:2] for a in g_in])
+    g_call = time_ms(run_g, iters=10)
+    g_ms = device_ms(run_g, one_kernel=True)
+    gb_ms = device_ms(run_gb, one_kernel=True)
+    g_plain = device_ms(run_g_plain, n=3, warmup=1)
+    del g_in, gb_in
+    torch.cuda.empty_cache()
+    g_bound, g_by, g_bytes, g_flops = map_bound(h, w, 4, "zero")
+    gb_bound, gb_by, _, _ = map_bound(hb, w, 4, "rows")
+    shard_ms = {}
+    for n in (2, 4):
+        serve = lambda f, n=n: sp.learned_resize_spatial_sharded(
+            up.model, up.params, f, 4, mesh=meshes[n])
+        shard_ms[n] = (time_ms(lambda: serve(lr_dev), iters=5, runs=10),
+                       time_ms(lambda: serve(frames[0]).cpu().numpy(),
+                               runs=10))
+    emit({"phase": "times_sharded", "card": name_power, "frame": [h, w, 4],
+          "packed_tail_ms": g_ms, "packed_tail_band_of_4_ms": gb_ms,
+          "packed_tail_plain_ms_no_yardstick": g_plain,
+          "per_call_ms_with_host_launch": {"packed_tail": g_call},
+          "packed_tail_bytes": g_bytes, "packed_tail_flops": g_flops,
+          "packed_tail_bound_ms": g_bound, "packed_tail_bound_by": g_by,
+          "packed_tail_band_of_4_bound_ms": gb_bound,
+          "sharded_2_bands_call_device_ms": shard_ms[2][0],
+          "sharded_2_bands_call_fetch_ms": shard_ms[2][1],
+          "sharded_4_bands_call_device_ms": shard_ms[4][0],
+          "sharded_4_bands_call_fetch_ms": shard_ms[4][1],
+          "model_upscaler_call_device_ms": call_dev,
+          "model_upscaler_call_fetch_ms": call_host})
+
+    emit({"phase": "profile_sharded", "card": name_power, "bands": 4,
+          **profile_served_frames(
+              lambda f: sp.learned_resize_spatial_sharded(
+                  up.model, up.params, f, 4, mesh=meshes[4]).cpu().numpy(),
+              frames[0], 5, {
+                  "packed_tail_ms_per_frame": "packed_tail_map_kernel",
+                  "memcpy_dtoh_ms_per_frame": "Memcpy DtoH"})})
+
     # 7. kernels line, then the card, then the result
     emit({"kernels": [
         {"name": "packed_tail_fused", "route": "cuda",
@@ -1064,6 +1306,14 @@ def main() -> int:
          "launches": launches["interleave_planar_u32"], "max_abs_err": b_err,
          "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
          "bound_by": "bytes", "library_ms": b_lib},
+        {"name": "packed_tail", "route": "cuda",
+         "source": "bicubic_interpolation_model_tpu_torch/csrc/"
+                   "packed_tail_map.cu",
+         "replaces": "bicubic_interpolation_model_tpu/ops/"
+                     "pallas_packed_tail.py:50",
+         "launches": launches_g["packed_tail"], "max_abs_err": g_err,
+         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+         "bound_by": g_by, "library_ms": None},
         {"name": "resize_mxu", "route": "cuda",
          "source": "bicubic_interpolation_model_tpu_torch/csrc/resize_mxu.cu",
          "replaces": "bicubic_interpolation_model_tpu/ops/pallas_mxu.py:60",

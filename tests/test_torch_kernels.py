@@ -1,7 +1,8 @@
-"""The six CUDA kernels of the port (csrc/packed_tail.cu, csrc/interleave.cu,
-csrc/resize_mxu.cu, csrc/resize_phase.cu, csrc/adaptive.cu,
-csrc/resize_banded.cu) against their plain PyTorch versions, and the wrapper
-contract around them.
+"""The seven CUDA kernels of the port (csrc/packed_tail.cu,
+csrc/packed_tail_map.cu, csrc/interleave.cu, csrc/resize_mxu.cu,
+csrc/resize_phase.cu, csrc/adaptive.cu, csrc/resize_banded.cu) against their
+plain PyTorch versions, the wrapper contract around them, and the sharded
+paths (parallel/) on a mesh that repeats the card.
 
 This file imports nothing of JAX, so it also runs on a machine with a card
 and no JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -9,7 +10,8 @@ Tests marked ``cuda`` skip without a card (a CUDA kernel has no CPU mode).
 
 Tolerances on the card, kernel vs plain version: kernel A ≤1 u8 LSB with a
 share of differing bytes < 1e-3 at f32 and with opaque alpha, ≤2 LSB with
-bf16 features (sums in another order); kernel B bit-equal (a copy);
+bf16 features (sums in another order); kernel G the same as A, on both
+halos; kernel B bit-equal (a copy);
 kernels C and D ≤1 u8 LSB from their plain versions at f32 (nvcc contracts
 a*b+c to FMA, PyTorch does not) with a share of differing bytes < 1e-3, and
 ≤1 LSB from the plain versions at float64; ``nearest`` bit-equal; float
@@ -17,7 +19,11 @@ inputs within 1e-3 absolute on a 0-255 range; kernel F the same as C and D;
 kernel E ≤1 u8 LSB from its plain version at f32 and float64 with a share of
 differing bytes < 1e-3 (FMA contraction, ``expf`` against ``torch.exp``) and
 the same region class at every pixel (its variance stage is written without
-contraction in the plain version's order of summation)."""
+contraction in the plain version's order of summation). Sharded paths on
+the card: classical, adaptive and batch bands byte-equal to the
+single-frame kernels (each band runs them on the same weights), learned
+bands ≤1 LSB from the sharded graph tail and ≤2 from the single-frame
+``super_resolve`` (kernel A)."""
 
 import pathlib
 import subprocess
@@ -66,6 +72,20 @@ def _tail_args(h, w, c, seed, device="cpu", opaque=False):
             p["conv_out"]["bias"], *_tail_operands(p, 4, "train"))
 
 
+def _map_args(h, w, c, halo, seed, device="cpu", opaque=False):
+    """A random merged map [h(+2), w, 4, 4, 32], LR pixels [h(+3), w, c]
+    and conv_out made by numpy from a seed (kernel G's operands)."""
+    rng = np.random.default_rng(seed)
+    rows, lr_rows = (h + 2, h + 3) if halo == "rows" else (h, h)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)
+    lr = rng.integers(0, 256, (lr_rows, w, c))
+    if opaque:
+        lr[..., 3] = 255
+    return (t(rng.normal(0, 0.5, (rows, w, 4, 4, 32))), t(lr),
+            t(rng.normal(0, 0.05, (3, 3, 32, 16))),
+            t(rng.normal(0, 0.25, 16)))
+
+
 def _diff(a, b):
     d = (a.view(torch.uint8).long() - b.view(torch.uint8).long()).abs()
     return int(d.max()), float((d != 0).double().mean())
@@ -107,6 +127,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     ref = pt.packed_tail_fused_reference(args[0][None], args[1][None],
                                          *args[2:])[0]
     assert torch.equal(planar.view(torch.int32), ref.view(torch.int32))
+    g0 = pt.packed_tail.launches
+    m, lr, kout, bout = _map_args(6, 10, 3, "rows", seed=0)
+    got = pt.packed_tail(m, lr, kout, bout, layout="planar", halo="rows")
+    assert torch.equal(got.view(torch.int32), pt.packed_tail_reference(
+        m, lr, kout, bout, halo="rows").view(torch.int32))
+    assert pt.packed_tail.launches == g0
     words = ilv.interleave_planar_u32(planar)
     assert torch.equal(words.view(torch.int32),
                        ilv.interleave_planar_u32_reference(planar)
@@ -121,6 +147,8 @@ def test_importing_the_port_builds_nothing():
     code = ("from bicubic_interpolation_model_tpu_torch.ops import "
             "packed_tail, interleave, mxu, phase, resize, adaptive, "
             "adaptive_fused, banded, downsample\n"
+            "from bicubic_interpolation_model_tpu_torch.parallel import "
+            "mesh, spatial, batch, distributed\n"
             "from bicubic_interpolation_model_tpu_torch.runtime import build\n"
             "assert build._lib is None\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -132,14 +160,15 @@ def test_kernel_sources_are_listed():
     from bicubic_interpolation_model_tpu_torch.runtime import build
     names = [p.name for p in build.sources()]
     assert names == ["adaptive.cu", "interleave.cu", "packed_tail.cu",
-                     "resize_banded.cu", "resize_mxu.cu", "resize_phase.cu"]
+                     "packed_tail_map.cu", "resize_banded.cu",
+                     "resize_mxu.cu", "resize_phase.cu"]
     for name in names:
         text = (build.CSRC / name).read_text()
         assert "Replaces:" in text and "extern \"C\"" in text
     entry_points = " ".join((build.CSRC / n).read_text() for n in names)
     for symbol in build._SIGNATURES:
         assert f"int {symbol}(" in entry_points
-    assert len(build._SIGNATURES) == 6
+    assert len(build._SIGNATURES) == 7
 
 
 @pytest.mark.cuda
@@ -520,3 +549,121 @@ def test_adaptive_and_banded_route_to_the_kernels_on_card(cuda):
     assert Upscaler(scale=2, impl="pallas").batch(frames).shape == (
         3, 40, 48, 4)
     assert banded.resize_banded.launches == f0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,halo", [g + ("zero",) for g in GEOMETRIES]
+                         + [(87, 510, 4, "rows"), (11, 21, 3, "rows"),
+                            (3, 9, 1, "rows"), (9, 17, 2, "zero")])
+def test_kernel_g_matches_plain_on_card(cuda, h, w, c, halo):
+    args = _map_args(h, w, c, halo, seed=h + w, device=cuda)
+    before = pt.packed_tail.launches
+    got = pt.packed_tail(*args, layout="planar", halo=halo)
+    assert pt.packed_tail.launches == before + 1
+    assert got.shape == (4, 4 * h, w)
+    ref = pt.packed_tail_reference(*args, halo=halo)
+    mx, share = _diff(got, ref)
+    assert mx <= 1 and share < 1e-3
+    assert float(got.view(torch.uint8).float().std()) > 0
+    bf = (args[0].to(torch.bfloat16),) + args[1:]
+    gb = pt.packed_tail(*bf, layout="planar", halo=halo)
+    assert _diff(gb, pt.packed_tail_reference(*bf, halo=halo))[0] <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", ["zero", "rows"])
+def test_kernel_g_opaque_alpha_and_layouts_on_card(cuda, halo):
+    args = _map_args(21, 45, 4, halo, seed=5, device=cuda, opaque=True)
+    got = pt.packed_tail(*args, layout="planar", opaque_alpha=True,
+                         halo=halo)
+    ref = pt.packed_tail_reference(*args, opaque_alpha=True, halo=halo)
+    assert _diff(got, ref)[0] <= 1
+    planar = pt.packed_tail(*args, layout="planar", halo=halo)
+    hwc = pt.packed_tail(*args, halo=halo)
+    words = pt.packed_tail(*args, layout="hwc32", halo=halo)
+    assert hwc.shape == (84, 180, 4) and words.shape == (84, 180)
+    assert torch.equal(pt.unpack_planar(planar, 21, 45, 4, 4), hwc)
+    assert torch.equal(words.contiguous().view(torch.uint8).reshape(
+        hwc.shape), hwc)
+    # a map lying at an odd offset is copied, not misread
+    odd = torch.empty(args[0].numel() + 1, device=cuda)[1:].view(
+        args[0].shape).copy_(args[0])
+    assert torch.equal(pt.packed_tail(odd, *args[1:], halo=halo), hwc)
+
+
+@pytest.mark.cuda
+def test_kernel_g_refuses_what_it_does_not_take(cuda):
+    m, lr, kout, bout = _map_args(8, 8, 4, "rows", seed=1, device=cuda)
+    with pytest.raises(ValueError, match="h\\+3"):
+        pt.packed_tail(m, lr[:-1], kout, bout, halo="rows")
+    with pytest.raises(ValueError, match="c<=4"):
+        pt.packed_tail(m, torch.zeros((11, 8, 5), device=cuda), kout, bout,
+                       halo="rows")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pt.packed_tail(m.double(), lr, kout, bout, halo="rows")
+    with pytest.raises(ValueError, match="several devices"):
+        pt.packed_tail(m, lr.cpu(), kout, bout, halo="rows")
+    with pytest.raises(ValueError, match="halo"):
+        pt.packed_tail(m, lr, kout, bout, halo="same")
+
+
+def _card_mesh(cuda, n, axis="spatial"):
+    from bicubic_interpolation_model_tpu_torch.parallel.mesh import Mesh
+    return Mesh([cuda] * n, (axis,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_learned_on_card(cuda, n):
+    from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis \
+        import _load_model_any
+    from bicubic_interpolation_model_tpu_torch.models.inference import (
+        super_resolve)
+    from bicubic_interpolation_model_tpu_torch.parallel.spatial import (
+        learned_resize_spatial_sharded)
+    model, params = _load_model_any(ROOT / "model" / "wp-1e-3-120")
+    img = _frames(n, 1, 24, 40, 4)[0].numpy()
+    img[..., 3] = 255
+    mesh = _card_mesh(cuda, n)
+    g0, a0 = pt.packed_tail.launches, pt.packed_tail_fused.launches
+    got = learned_resize_spatial_sharded(model, params, img, 4, mesh=mesh)
+    assert got.is_cuda and got.shape == (96, 160, 4)
+    assert (pt.packed_tail.launches, pt.packed_tail_fused.launches) == (
+        g0 + n, a0)
+    graph = learned_resize_spatial_sharded(model, params, img, 4, mesh=mesh,
+                                           tail="graph")
+    mx, share = _diff(got, graph)
+    assert mx <= 1 and share < 1e-3
+    single = super_resolve(model, params, img, convention="train")
+    assert _diff(got, single)[0] <= 2
+
+
+@pytest.mark.cuda
+def test_sharded_classical_adaptive_and_batch_on_card(cuda):
+    from bicubic_interpolation_model_tpu_torch.parallel.batch import (
+        resize_batch_sharded)
+    from bicubic_interpolation_model_tpu_torch.parallel.spatial import (
+        adaptive_resize_spatial_sharded, resize_spatial_sharded)
+    mesh = _card_mesh(cuda, 4)
+    img = _frames(3, 1, 32, 24, 4, cuda)[0]
+    for method in ("nearest", "bilinear", "bicubic", "lanczos"):
+        c0 = mxu.resize_mxu.launches
+        got = resize_spatial_sharded(img, 4, method, mesh=mesh)
+        assert mxu.resize_mxu.launches == c0 + 4
+        assert torch.equal(got, mxu.resize_mxu(img, 4, method))
+        ein = resize_spatial_sharded(img, 4, method, mesh=mesh, impl="einsum")
+        assert _diff_u8(got, ein)[0] <= 1
+    frame = _all_class_frames(4, 1, 32, 40, 4, cuda)[0]
+    e0 = adf.adaptive_resize_fused.launches
+    got = adaptive_resize_spatial_sharded(frame, 4, mesh=mesh)
+    assert adf.adaptive_resize_fused.launches == e0 + 4
+    assert torch.equal(got, adf.adaptive_resize_fused(frame, 4))
+    planar = adaptive_resize_spatial_sharded(frame, 4, mesh=mesh,
+                                             layout="planar")
+    assert torch.equal(planar, adf.adaptive_resize_fused(frame, 4,
+                                                         layout="planar"))
+    imgs = _frames(5, 8, 16, 12, 3, cuda)
+    d0 = phase.resize_phase.launches
+    out = resize_batch_sharded(imgs, 4, mesh=_card_mesh(cuda, 4, "data"))
+    assert phase.resize_phase.launches == d0 + 4
+    assert out.is_cuda and torch.equal(out, phase.resize_phase(imgs, 4))

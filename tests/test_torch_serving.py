@@ -102,6 +102,8 @@ def test_port_imports_nothing_of_jax():
     pkg = "bicubic_interpolation_model_tpu_torch."
     for name in ("core.kernels", "core.plan", "ops.resize", "ops.mxu",
                  "ops.phase", "ops.adaptive", "ops.adaptive_fused",
-                 "ops.banded", "ops.downsample", "serving"):
+                 "ops.banded", "ops.downsample", "serving", "parallel.mesh",
+                 "parallel.spatial", "parallel.batch",
+                 "parallel.distributed"):
         assert pkg + name in mods
-    assert len(mods) >= 25
+    assert len(mods) >= 30
