@@ -23,200 +23,201 @@
 // band rows [-1, h+1) and lr rows [-1, h+2); only columns are zero (map) or
 // clamped (LR).
 //
-// What bounds it on the H100: arithmetic. At the 348x510 frame the map is
-// 363.5 MB in f32 and the kernel moves 377.7 MB (0.113 ms at 3.35 TB/s), but
-// conv_out is 147,456 FLOP per LR pixel, 26.17 GFLOP, and the apply 0.36:
-// 0.396 ms at the 67 TFLOP/s f32 peak. Unlike kernel A the 16 offset lanes
-// of each phase are data here (zeroed outside the image by the caller), so
-// conv_out contracts all 32 lanes: twice A's products. The design: one block
-// per 8x8 LR tile stages the haloed map tile (10x10 pixels x 512 lanes, f32,
-// 206 KB) and conv_out's kernel (18 KB) in shared memory; one thread per
-// (LR pixel, column phase q) holds the 4 row phases x 16 outputs in
-// registers, so each float4 of conv_out's kernel, read as a warp-wide
-// broadcast, feeds 4 x 4 independent FMAs (8 FMAs per shared-memory load).
-// A pixel occupies 513 floats and a tile row 5160 (8 mod 32), so the 8x4
-// pixels of a warp read 32 distinct banks. The tile is loaded before any
-// arithmetic and one block fits an SM: loads and FMAs do not overlap
-// (cp.async/TMA double buffering, wgmma on bf16 maps: later work).
+// What bounds it on the H100: at the 348x510 frame the f32 map is 363.5 MB
+// and the kernel moves 377.7 MB (0.113 ms at 3.35 TB/s); conv_out is 26.17
+// GFLOP of products, as 3xTF32 on the tensor cores 3 x 26.17 / 495 TFLOP/s
+// = 0.159 ms (bf16 maps: one pass, 0.026 ms, against 0.057 ms of bytes),
+// and the apply 0.36 GFLOP on the f32 CUDA cores. So the products and the
+// map's bytes are within 1.4x of each other, and the design's point is to
+// keep both busy at once. As measured, the kernel takes ~3.5x that bound,
+// and with a bf16 map ~56% of its f32 time: the per-row barrier of one
+// block per SM, not the products or the bytes, holds it now.
 //
-// bf16 maps: the wrapper rounds conv_out's kernel to bf16; products of two
-// bf16 values are exact in f32 and accumulate in f32, as the TPU kernel's
-// matmuls run in m.dtype with f32 accumulation.
+// Design (tail_mma.cuh holds the MMA core and the epilogue it shares with
+// kernel A; mma.sync, not wgmma):
+// - A block owns a strip of 16 LR columns (one m tile of pixels) and walks
+//   down a segment of its rows. The launcher cuts the frame into strips x
+//   segments so that the blocks fill the SMs once (348x510: 32 strips x 4
+//   segments of 87 rows = 128 blocks), and a segment loads only 2 map rows
+//   beyond its own.
+// - A ring of 4 map rows in shared memory (18 haloed pixels x 512 lanes
+//   each, 37 KB in f32): LR row y needs map rows y-1, y, y+1, and while its
+//   MMAs run, row y+2 is in flight by cp.async (zeros for pixels outside
+//   the frame), so the map's loads overlap the tensor-core work. One
+//   barrier per LR row.
+// - conv_out on the tensor cores: warp = output phase (p, q) of the 16,
+//   M = the strip's 16 pixels of the LR row, K = 9 taps x 32 lanes of the
+//   source pixel's phase block (rows gathered from the ring), N = 16. The
+//   offset lanes are data here (zeroed outside the image by the caller), so
+//   conv_out contracts all 32 lanes. conv_out's B fragments (f32: hi and lo
+//   for 3xTF32) are built once per block into shared memory. Then tanh,
+//   apply, round and pack (tail_mma::apply_store).
+// - Shared memory: the ring at 516 (f32) or 260 (bf16) words per pixel,
+//   4 mod 32 so that a fragment load (8 rows x 4 words) hits 32 banks; bf16
+//   pairs are read as 32-bit words straight into the bf16 A fragments.
+//   185,536 B (f32) or 84,160 B (bf16), 16 warps, one block per SM.
+//
+// bf16 maps: the wrapper rounds conv_out's kernel to bf16; one bf16 MMA
+// pass with f32 accumulation, as the TPU kernel's matmuls run in m.dtype.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "tail_mma.cuh"
 
 namespace {
+
+using namespace tail_mma;
 
 constexpr int S = 4;                    // scale
 constexpr int NW = 16;                  // predicted weights (conv_out outputs)
 constexpr int TWOF = 32;                // merged channels per phase
 constexpr int LANES = S * S * TWOF;     // 512 map lanes per LR pixel
-constexpr int TH = 8, TW = 8;           // LR tile
-constexpr int HH = TH + 2, HW = TW + 2; // with the 3x3 conv's halo
-constexpr int PSTRIDE = LANES + 1;      // floats per staged pixel
-constexpr int RSTRIDE = HW * PSTRIDE + 30;  // floats per staged tile row
-constexpr int MAP_N = HH * RSTRIDE;
-constexpr int KOUT_N = 9 * TWOF * NW;   // conv_out [3][3][32][16]
-constexpr int THREADS = TH * TW * S;    // one thread per (pixel, column phase)
-constexpr size_t SMEM_BYTES = (size_t)(MAP_N + KOUT_N + NW) * 4;
-static_assert(SMEM_BYTES <= 232448, "tile does not fit shared memory");
-static_assert(RSTRIDE % 32 == 8, "a warp's 8x4 pixels must hit 32 banks");
-static_assert(MAP_N % 4 == 0, "conv_out's stage must be 16-byte aligned");
+constexpr int TW = 16;                  // strip width = one m tile
+constexpr int HWP = TW + 2;             // haloed pixels per map row
+constexpr int NSLOT = 4;                // ring of map rows
+constexpr int WARPS = 16;               // = output phases
+constexpr int THREADS = 32 * WARPS;
 
-// 16 bytes of map lanes → 4 (f32) or 8 (bf16) floats in shared memory
-__device__ __forceinline__ void stage16(const float* src, float* dst) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
-__device__ __forceinline__ void stage16(const __nv_bfloat16* src, float* dst) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    // a bf16 is the upper half of the f32 with the same bits
-    dst[2 * k] = __uint_as_float(words[k] << 16);
-    dst[2 * k + 1] = __uint_as_float(words[k] & 0xffff0000u);
-  }
-}
+// shared-memory layout in 32-bit words
+template <bool BF16>
+struct Layout {
+  static constexpr int PIX_W = BF16 ? LANES / 2 : LANES;
+  static constexpr int PSTRIDE = PIX_W + 4;
+  static constexpr int CHUNK_W = BF16 ? 8 : 16;        // words per 16 lanes
+  static constexpr int SLOT = HWP * PSTRIDE;
+  static constexpr int RING_N = NSLOT * SLOT;
+  static constexpr int KF_N = 9 * 2 * BParts<BF16>::N * 32;   // uint4
+  static constexpr size_t BYTES = (size_t)RING_N * 4 + (size_t)KF_N * 16 +
+                                  NW * 4;
+  static_assert(BYTES <= 232448, "ring does not fit shared memory");
+  static_assert(PSTRIDE % 8 == 4, "fragment rows must fall on distinct banks");
+  static_assert(SLOT % 4 == 0, "16-byte stages");
+};
 
-template <typename MT>
+template <bool BF16, typename MT>
 __global__ void __launch_bounds__(THREADS, 1)
 packed_tail_map_kernel(const MT* __restrict__ m, const float* __restrict__ lr,
                        const float* __restrict__ kout,
                        const float* __restrict__ bout,
                        uint32_t* __restrict__ out, int h, int w, int c,
-                       int halo_rows, int opaque_alpha) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* map = smem;                      // [HH][RSTRIDE], pixel [PSTRIDE]
-  float* ks = smem + MAP_N;               // [9][32][16]
-  float* bs = ks + KOUT_N;                // [16]
+                       int halo_rows, int opaque_alpha, int seg_rows) {
+  using L = Layout<BF16>;
+  extern __shared__ uint4 smem4[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem4);   // [4][HWP][PSTRIDE]
+  uint4* kf = smem4 + L::RING_N / 4;                     // [9][2][parts][32]
+  float* bs = reinterpret_cast<float*>(kf + L::KF_N);    // [NW]
 
-  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int x0 = blockIdx.x * TW;
+  const int ya = blockIdx.y * seg_rows, yb = min(ya + seg_rows, h);
   const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;
   // band row r lies at tensor row r + off; m holds m_rows, lr lr_rows rows
   const int off = halo_rows ? 1 : 0;
   const int m_rows = halo_rows ? h + 2 : h;
   const int lr_rows = halo_rows ? h + 3 : h;
 
-  // 1. the haloed map tile (zero outside the tensor's rows and the columns)
+  // map row r (band row, r >= -1) of the strip's 18 haloed pixels into ring
+  // slot (r + 4) % 4, by cp.async; zeros outside the tensor's rows and the
+  // frame's columns
   constexpr int PER16 = 16 / sizeof(MT);          // lanes per 16 bytes
   constexpr int CHUNKS = LANES / PER16;           // 16-byte chunks per pixel
-  for (int idx = tid; idx < HH * HW * CHUNKS; idx += THREADS) {
-    const int pix = idx / CHUNKS, ch = idx % CHUNKS;
-    const int py = pix / HW, px = pix % HW;
-    const int tr = y0 - 1 + py + off, gc = x0 - 1 + px;
-    float* dst = map + py * RSTRIDE + px * PSTRIDE + ch * PER16;
-    if (tr >= 0 && tr < m_rows && gc >= 0 && gc < w) {
-      stage16(m + ((size_t)tr * w + gc) * LANES + ch * PER16, dst);
-    } else {
-#pragma unroll
-      for (int k = 0; k < PER16; ++k) dst[k] = 0.f;
+  auto load_row = [&](int r) {
+    uint32_t* dst = ring + ((r + 4) & 3) * L::SLOT;
+    const int tr = r + off;
+    const bool row_in = tr >= 0 && tr < m_rows;
+    for (int idx = tid; idx < HWP * CHUNKS; idx += THREADS) {
+      const int px = idx / CHUNKS, k = idx % CHUNKS;
+      const int gc = x0 - 1 + px;
+      const bool in = row_in && gc >= 0 && gc < w;
+      const MT* src = in ? m + ((size_t)tr * w + gc) * LANES + k * PER16 : m;
+      cp_async16(dst + px * L::PSTRIDE + 4 * k, src, in);
     }
+  };
+  load_row(ya - 1);
+  load_row(ya);
+  load_row(ya + 1);
+  cp_async_commit();
+
+  // conv_out's B fragments and bias while the first rows load
+  constexpr int BP = BParts<BF16>::N;
+  for (int idx = tid; idx < 9 * 2 * 32; idx += THREADS) {
+    const int tk = idx / 32, l = idx % 32;        // tk = tap * 2 + K chunk
+    store_b<BF16>(kout + tk * 16 * NW, NW, l, kf + tk * BP * 32);
   }
-  for (int idx = tid; idx < KOUT_N; idx += THREADS) ks[idx] = __ldg(kout + idx);
   if (tid < NW) bs[tid] = __ldg(bout + tid);
-  __syncthreads();
 
-  // 2. conv_out for (pixel, column phase q), all 4 row phases
-  const int q = tid / (TH * TW);
-  const int lp = tid % (TH * TW);
-  const int ty = lp / TW, tx = lp % TW;
-  const int gy = y0 + ty, gx = x0 + tx;
-  if (gy >= h || gx >= w) return;
-
-  float acc[S][NW];
-#pragma unroll
-  for (int pp = 0; pp < S; ++pp)
-#pragma unroll
-    for (int o = 0; o < NW; ++o) acc[pp][o] = bs[o];
-
-  for (int dy = -1; dy <= 1; ++dy) {
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int qc = q + dx;
-      const int q2 = (qc + S) % S, sx = qc < 0 ? -1 : (qc >= S ? 1 : 0);
-      const float* src[S];
-#pragma unroll
-      for (int pp = 0; pp < S; ++pp) {
-        const int pr = pp + dy;
-        const int p2 = (pr + S) % S, sy = pr < 0 ? -1 : (pr >= S ? 1 : 0);
-        src[pp] = map + (ty + 1 + sy) * RSTRIDE + (tx + 1 + sx) * PSTRIDE +
-                  (p2 * S + q2) * TWOF;
-      }
-      const float4* kt = reinterpret_cast<const float4*>(
-          ks + ((dy + 1) * 3 + dx + 1) * TWOF * NW);
-#pragma unroll 2
-      for (int i = 0; i < TWOF; ++i) {
-        float k[NW];
-#pragma unroll
-        for (int o4 = 0; o4 < NW / 4; ++o4) {
-          const float4 kv = kt[i * (NW / 4) + o4];
-          k[4 * o4 + 0] = kv.x;
-          k[4 * o4 + 1] = kv.y;
-          k[4 * o4 + 2] = kv.z;
-          k[4 * o4 + 3] = kv.w;
-        }
-#pragma unroll
-        for (int pp = 0; pp < S; ++pp) {
-          const float v = src[pp][i];
-#pragma unroll
-          for (int o = 0; o < NW; ++o) acc[pp][o] = fmaf(v, k[o], acc[pp][o]);
-        }
-      }
-    }
-  }
-
-  // 3. tanh, the 16-tap apply, round and pack, one word per row phase
+  const int pp = warp >> 2, q = warp & 3;
   const int n_ch = (opaque_alpha && c == 4) ? 3 : c;
-  int rows[4], cols[4];
+  const int t = lane & 3;
+  for (int yy = ya; yy < yb; ++yy) {
+    // rows yy-1..yy+1 have landed, and every warp is done with row yy-2,
+    // whose slot now takes row yy+2 while this row's MMAs run
+    cp_async_wait_all();
+    __syncthreads();
+    if (yy + 2 <= yb) load_row(yy + 2);
+    cp_async_commit();
+
+    Acc acc;
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    rows[t] = min(max(gy - 1 + t + off, 0), lr_rows - 1);
-    cols[t] = min(max(gx - 1 + t, 0), w - 1);
-  }
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-  for (int pp = 0; pp < S; ++pp) {
-    float wt[NW];
-#pragma unroll
-    for (int o = 0; o < NW; ++o) wt[o] = tanhf(acc[pp][o]);
-    uint32_t word = 0;
-    for (int ch = 0; ch < c; ++ch) {
-      float v = 0.f;
-      if (ch < n_ch) {
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          v = fmaf(wt[i],
-                   __ldg(lr + ((size_t)rows[i / 4] * w + cols[i % 4]) * c + ch),
-                   v);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 16; ++i) v += wt[i];
-        v *= 255.f;
+      for (int r = 0; r < 4; ++r) {
+        acc.big[nt][r] = bs[nt * 8 + 2 * t + (r & 1)];
+        acc.small[nt][r] = 0.f;
       }
-      const int iv = min(max(__float2int_rn(v), 0), 255);
-      word |= (uint32_t)iv << (8 * ch);
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int pr = pp + dy;
+      const int p2 = (pr + S) % S, sy = pr < 0 ? -1 : (pr >= S ? 1 : 0);
+      const uint32_t* slot = ring + ((yy + sy + 4) & 3) * L::SLOT;
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        const int qc = q + dx;
+        const int q2 = (qc + S) % S, sx = qc < 0 ? -1 : (qc >= S ? 1 : 0);
+        const int tap = (dy + 1) * 3 + dx + 1;
+        const uint32_t* p0 = slot + (g + 1 + sx) * L::PSTRIDE +
+                             (p2 * S + q2) * 2 * L::CHUNK_W;
+        const uint32_t* p1 = p0 + 8 * L::PSTRIDE;
+#pragma unroll
+        for (int kc = 0; kc < 2; ++kc) {
+          uint4 b[BP];
+          load_b<BF16>(kf + (tap * 2 + kc) * BP * 32, lane, b);
+          mma_chunk<BF16>(acc, p0 + kc * L::CHUNK_W, p1 + kc * L::CHUNK_W, b,
+                          lane);
+        }
+      }
     }
-    out[((size_t)q * (h * S) + (size_t)gy * S + pp) * w + gx] = word;
+    int rowoff[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      rowoff[k] = min(max(yy - 1 + k + off, 0), lr_rows - 1) * w * c;
+    const int gx0 = x0 + g;
+    uint32_t* orow = out + ((size_t)q * (h * S) + (size_t)yy * S + pp) * w;
+    apply_store(acc, lr, rowoff, gx0 - 1, 0, w - 1, c, n_ch, gx0 < w,
+                gx0 + 8 < w, orow + gx0, orow + gx0 + 8, lane);
   }
 }
 
-template <typename MT>
+template <bool BF16, typename MT>
 int launch(const void* m, const float* lr, const float* kout,
            const float* bout, uint32_t* out, int h, int w, int c,
            int halo_rows, int opaque_alpha, cudaStream_t stream) {
-  auto kern = packed_tail_map_kernel<MT>;
+  auto kern = packed_tail_map_kernel<BF16, MT>;
+  constexpr size_t bytes = Layout<BF16>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  kern<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const MT*>(m), lr, kout, bout, out, h, w, c, halo_rows,
-      opaque_alpha);
+  int dev = 0, n_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // strips x segments: as many segments as fill the SMs once (at least one)
+  const int strips = (w + TW - 1) / TW;
+  const int want = max(1, min(h, n_sm / strips));
+  const int seg = (h + want - 1) / want;
+  dim3 grid(strips, (h + seg - 1) / seg);
+  kern<<<grid, THREADS, bytes, stream>>>(static_cast<const MT*>(m), lr, kout,
+                                         bout, out, h, w, c, halo_rows,
+                                         opaque_alpha, seg);
   return (int)cudaGetLastError();
 }
 
@@ -233,8 +234,8 @@ extern "C" int bim_packed_tail_map(const void* m, int m_bf16, const float* lr,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m_bf16)
-    return launch<__nv_bfloat16>(m, lr, kout, bout, out, h, w, c, halo_rows,
-                                 opaque_alpha, st);
-  return launch<float>(m, lr, kout, bout, out, h, w, c, halo_rows,
-                       opaque_alpha, st);
+    return launch<true, __nv_bfloat16>(m, lr, kout, bout, out, h, w, c,
+                                       halo_rows, opaque_alpha, st);
+  return launch<false, float>(m, lr, kout, bout, out, h, w, c, halo_rows,
+                              opaque_alpha, st);
 }

@@ -16,6 +16,10 @@ fed a precomputed merged map, with single-frame zero padding
 (``halo="rows"``, the band-sharded learned path). Its plain version is
 :func:`packed_tail_reference`.
 
+Both kernels run their matrix products (conv_out, and A's upsample) on the
+tensor cores through ``csrc/tail_mma.cuh``: 3xTF32 for f32 inputs, one bf16
+pass with f32 accumulation for bf16 inputs.
+
 Counterparts of ``bicubic_interpolation_model_tpu/ops/pallas_packed_tail.py``
 (``packed_tail_fused``, ``packed_tail_pallas``).
 
@@ -117,6 +121,8 @@ def _launch(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b, s,
               rnd(offs.float()).contiguous(), rnd(att_w.float()).contiguous(),
               att_b.float().contiguous()]
     y = y.contiguous()
+    if y.data_ptr() % 16:           # the kernel copies 16 bytes at a time
+        y = y.clone()
     lr = lr_f32.float().contiguous()
     out = torch.empty((bsz, s, h * s, w), dtype=torch.uint32, device=y.device)
     if out.numel():

@@ -38,12 +38,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 GEOMETRIES = [(24, 40, 4), (19, 37, 4), (13, 9, 3), (8, 128, 1),
               (348, 510, 4)]
+# ragged for kernels A's and G's 16-pixel and 8-weight MMA tiles
+MMA_EDGES = [(17, 23, 4), (1, 1, 3), (2, 130, 2)]
 FRAME = (348, 510)                  # LR frame of the 0020 image, 4x -> 1392x2040
 HD = (1080, 1920)                   # classical resize frame, 4x -> 4320x7680
 METHODS = ("nearest", "bilinear", "bicubic", "lanczos")
 SMALL = ((23, 37), (40, 64), (13, 9))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12            # H100 SXM tensor cores, dense TF32
+BF16_FLOP_PER_S = 989e12            # H100 SXM tensor cores, dense bf16
 
 
 def emit(obj):
@@ -86,16 +90,18 @@ def rotating(fn, inputs):
     return lambda: fn(*next(it))
 
 
-def device_ms(fn, n=20, warmup=3, one_kernel=False):
+def device_ms(fn, n=20, warmup=3, kernel=None):
     """Device time per call from one torch.profiler trace of ``n`` calls
-    (host launch cost excluded). With ``one_kernel`` (a wrapper that
-    launches exactly one kernel per call and nothing else) it is the mean
-    duration of the trace's device events: the profiler sometimes drops an
-    event (cause unknown), and the mean of the launches the trace holds is
-    still the time of one launch; a trace with another count than ``n`` is
-    reported on stderr. Otherwise it is the summed durations of all device
-    events over ``n``. Raises if the trace holds no device time: a host
-    clock's reading is never printed under a device time's name."""
+    (host launch cost excluded). With ``kernel`` (a substring of the name
+    of the one kernel that ``fn`` launches once per call) it is the mean
+    duration of that kernel's events in the trace: the profiler sometimes
+    drops an event (cause unknown), and the mean of the launches the trace
+    holds is still the time of one launch; a trace with another count than
+    ``n`` is reported on stderr. Other device events of ``fn`` (a wrapper's
+    own small kernels) are left out. Otherwise it is the summed durations
+    of all device events over ``n``. Raises if the trace holds no device
+    time: a host clock's reading is never printed under a device time's
+    name."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -107,10 +113,11 @@ def device_ms(fn, n=20, warmup=3, one_kernel=False):
         torch.cuda.synchronize()
     durations = [e.time_range.end - e.time_range.start
                  for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (kernel is None or kernel in e.name)]
     if sum(durations) <= 0:
         raise RuntimeError("the profiler's trace holds no device time")
-    if not one_kernel:
+    if kernel is None:
         return sum(durations) / 1e3 / n
     if len(durations) != n:
         print(f"device_ms: the trace holds {len(durations)} device events "
@@ -139,34 +146,49 @@ def wp_tail_params(rng, dev):
             "conv_out": {"kernel": n(3, 3, 32, 16) * 0.4, "bias": n(16)}}
 
 
-def tail_case(h, w, c, dev, seed):
+def tail_case(h, w, c, dev, seed, batch=1):
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         _tail_operands)
     rng = np.random.default_rng(seed)
     p = wp_tail_params(rng, dev)
-    y = torch.as_tensor(rng.normal(0, 0.5, (1, h, w, 32)).astype(np.float32),
-                        device=dev)
-    lr = torch.as_tensor(rng.integers(0, 256, (1, h, w, c)).astype(
+    y = torch.as_tensor(rng.normal(0, 0.5, (batch, h, w, 32)).astype(
+        np.float32), device=dev)
+    lr = torch.as_tensor(rng.integers(0, 256, (batch, h, w, c)).astype(
         np.float32), device=dev)
     ops = _tail_operands(p, 4, "train")
     return (y, lr, p["conv_out"]["kernel"], p["conv_out"]["bias"], *ops)
 
 
+def ops_bound(nbytes, products, other, bf16):
+    """Least time of a kernel that moves ``nbytes``, runs ``products``
+    FLOPs of matrix products on the tensor cores (3xTF32, three passes at
+    the TF32 rate, on the f32 route; one pass at the bf16 rate on the bf16
+    route) and ``other`` FLOPs on the f32 CUDA cores: the largest of the
+    three times, each unit at its peak. Returns (ms, "bytes" or
+    "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_mma = (products / BF16_FLOP_PER_S if bf16
+             else 3 * products / TF32_FLOP_PER_S) * 1e3
+    t_ops = max(t_mma, other / F32_FLOP_PER_S * 1e3)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def tail_bound(h, w, c, y_bytes):
-    """Least time of the fused tail at [h, w, c]: bytes (features, pixels,
-    output words read/written once) over HBM rate, useful f32 FLOPs over
-    the f32 peak. The FLOPs are multiply-adds of the upsample (256
-    up-lanes), the attention dot, conv_out over the 16 gated up-lanes of
-    each of 9 taps x 16 phases (its offset lanes are an in-image flag times
-    a constant per tap and phase, so they cost no products per pixel) and
-    the tap apply."""
+    """Least time of the fused tail at [h, w, c] (kernel A; y_bytes 4 for
+    f32 features, 2 for bf16): bytes (features, pixels, output words
+    read/written once) over the HBM rate; the products of the upsample (256
+    up-lanes) and of conv_out over the 16 gated up-lanes of each of 9 taps
+    x 16 phases (its offset lanes are an in-image flag times a constant per
+    tap and phase, so they cost no products per pixel) on the tensor cores;
+    the attention dot, tanh (one operation per weight) and the tap apply on
+    the f32 CUDA cores (:func:`ops_bound`)."""
     m = h * w
     nbytes = m * 32 * y_bytes + m * c * 4 + m * 16 * 4
-    flops = 2 * m * (32 * 256 + 256 + 16 * 9 * 16 * 16 + 16 * 16 * c)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    products = 2 * m * (32 * 256 + 16 * 9 * 16 * 16)
+    other = m * (2 * 256 + 256 + 2 * 16 * 16 * c)
+    return (*ops_bound(nbytes, products, other, y_bytes == 2), nbytes,
+            products + other)
 
 
 def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
@@ -219,29 +241,31 @@ def map_case(h, w, c, halo, dev, seed):
 
 
 def map_bound(h, w, c, halo, m_bytes=4):
-    """Least time of kernel G on h x w LR pixels: bytes (the merged map,
-    the LR pixels and the output words, each moved once) over the HBM rate,
-    useful f32 FLOPs over the f32 peak: conv_out over all 32 lanes of the
+    """Least time of kernel G on h x w LR pixels (m_bytes 4 for an f32 map,
+    2 for bf16): bytes (the merged map, the LR pixels and the output words,
+    each moved once) over the HBM rate; conv_out over all 32 lanes of the
     map (its offset lanes are data here), 9 taps x 32 x 16 multiply-adds
-    per output phase, and 16 x 16 per channel for the tap apply."""
+    per output phase, on the tensor cores; tanh and the tap apply (16 x 16
+    per channel) on the f32 CUDA cores (:func:`ops_bound`)."""
     rows, lr_rows = (h + 2, h + 3) if halo == "rows" else (h, h)
     nbytes = rows * w * 512 * m_bytes + lr_rows * w * c * 4 + h * w * 16 * 4
-    flops = 2 * h * w * (16 * 9 * 32 * 16 + 16 * 16 * c)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    products = 2 * h * w * 16 * 9 * 32 * 16
+    other = h * w * (256 + 2 * 16 * 16 * c)
+    return (*ops_bound(nbytes, products, other, m_bytes == 2), nbytes,
+            products + other)
 
 
 def check_kernel_g(pt, dev, emit_fn):
     """Kernel G against its plain version on the card: single frames
-    (``halo="zero"``) and bands of real rows (``halo="rows"``: 87 and 174
-    rows of a 348x510 frame, ragged small bands); f32, bf16 maps, opaque
-    alpha and the three layouts. Returns the largest f32 deviation."""
+    (``halo="zero"``, some ragged for its MMA tiles) and bands of real rows
+    (``halo="rows"``: 87 and 174 rows of a 348x510 frame, ragged small
+    bands of 1-11 rows); f32, bf16 maps, opaque alpha and the three
+    layouts. Returns the largest f32 deviation."""
     worst = 0
-    cases = ([(h, w, c, "zero") for h, w, c in GEOMETRIES]
+    cases = ([(h, w, c, "zero") for h, w, c in GEOMETRIES + MMA_EDGES]
              + [(87, 510, 4, "rows"), (174, 510, 4, "rows"),
-                (11, 21, 3, "rows"), (5, 9, 1, "rows")])
+                (11, 21, 3, "rows"), (5, 9, 1, "rows"), (1, 23, 4, "rows"),
+                (3, 130, 2, "rows")])
     for i, (h, w, c, halo) in enumerate(cases):
         m, lr, kout, bout = map_case(h, w, c, halo, dev, 2000 + i)
         run = lambda mm, ll, **kw: pt.packed_tail(mm, ll, kout, bout,
@@ -623,10 +647,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(rec["seconds"], 3),
           "sources": [s.name for s in build.sources()], "ptxas": ptxas})
 
-    # 3. kernel A vs its plain version
+    # 3. kernel A vs its plain version (batches of 3 at the MMA edges)
     a_err = 0
-    for i, (h, w, c) in enumerate(GEOMETRIES):
-        args = tail_case(h, w, c, dev, seed=1000 + i)
+    for i, (h, w, c) in enumerate(GEOMETRIES + MMA_EDGES):
+        batch = 3 if (h, w, c) in MMA_EDGES else 1
+        args = tail_case(h, w, c, dev, seed=1000 + i, batch=batch)
         got = pt.packed_tail_fused(*args, layout="planar")
         torch.cuda.synchronize()
         ref = pt.packed_tail_fused_reference(*args)
@@ -638,7 +663,8 @@ def main() -> int:
         rb = pt.packed_tail_fused_reference(*bargs)
         mxb, shareb = diff_u8(gb.view(torch.uint8), rb.view(torch.uint8))
         ok = mx <= 1 and share < 1e-3 and std > 0 and mxb <= 2
-        res = {"phase": "kernel_a", "geometry": [h, w, c], "f32_max": mx,
+        res = {"phase": "kernel_a", "geometry": [h, w, c], "batch": batch,
+               "f32_max": mx,
                "f32_share": share, "std": round(std, 3), "bf16_max": mxb,
                "bf16_share": shareb}
         if c == 4:
@@ -1037,6 +1063,9 @@ def main() -> int:
     a_in = [(args[0].clone(), args[1].clone()) for _ in range(4)]
     run_a = rotating(lambda y, lr: pt.packed_tail_fused(
         y, lr, *args[2:], layout="planar"), a_in)
+    run_a_bf16 = rotating(lambda y, lr: pt.packed_tail_fused(
+        y, lr, *args[2:], layout="planar"),
+        [(y.to(torch.bfloat16), lr) for y, lr in a_in])
     run_a_plain = rotating(lambda y, lr: pt.packed_tail_fused_reference(
         y, lr, *args[2:]), a_in)
     planar = pt.packed_tail_fused(*args, layout="planar")[0]
@@ -1053,19 +1082,24 @@ def main() -> int:
     b_call = time_ms(run_b, iters=50)
     b_plain_call = time_ms(run_b_plain, iters=50)
     b_lib_call = time_ms(run_b_lib, iters=50)
-    a_ms = device_ms(run_a, one_kernel=True)
+    a_ms = device_ms(run_a, kernel="packed_tail_fused_kernel")
+    # the wrapper rounds the parameters to bf16 per call (small kernels of
+    # their own, left out)
+    a_bf16_ms = device_ms(run_a_bf16, kernel="packed_tail_fused_kernel")
     a_plain = device_ms(run_a_plain, n=5)
-    b_ms = device_ms(run_b, one_kernel=True)
+    b_ms = device_ms(run_b, kernel="interleave_kernel")
     b_plain = device_ms(run_b_plain)
     b_lib = device_ms(run_b_lib)
     lr_dev = torch.as_tensor(frames[0]).to(dev)
     call_dev = time_ms(lambda: up(lr_dev, fetch=False), iters=10)
     call_host = time_ms(lambda: up(frames[0]))
     a_bound, a_by, a_bytes, a_flops = tail_bound(h, w, 4, 4)
+    a_bf16_bound, a_bf16_by, _, _ = tail_bound(h, w, 4, 2)
     b_bytes = 2 * planar.numel() * 4
     b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
     emit({"phase": "times", "card": name_power, "frame": [h, w, 4],
           "packed_tail_fused_ms": a_ms,
+          "packed_tail_fused_bf16_ms": a_bf16_ms,
           "packed_tail_fused_plain_ms_no_yardstick": a_plain,
           "interleave_planar_u32_ms": b_ms,
           "interleave_planar_u32_plain_ms_no_yardstick": b_plain,
@@ -1078,13 +1112,18 @@ def main() -> int:
           "model_upscaler_call_device_ms": call_dev,
           "model_upscaler_call_fetch_ms": call_host,
           "packed_tail_bytes": a_bytes, "packed_tail_flops": a_flops,
-          "packed_tail_bound_ms": a_bound,
+          "packed_tail_bound_ms": a_bound, "packed_tail_bound_by": a_by,
+          "packed_tail_bf16_bound_ms": a_bf16_bound,
+          "packed_tail_bf16_bound_by": a_bf16_by,
           "interleave_bytes": b_bytes, "interleave_bound_ms": b_bound})
 
-    emit({"phase": "profile", "card": name_power,
-          **profile_served_frames(up, frames[0], 5, {
-              "packed_tail_fused_ms_per_frame": "packed_tail_fused_kernel",
-              "interleave_planar_u32_ms_per_frame": "interleave_kernel"})})
+    prof = profile_served_frames(up, frames[0], 5, {
+        "packed_tail_fused_ms_per_frame": "packed_tail_fused_kernel",
+        "interleave_planar_u32_ms_per_frame": "interleave_kernel"})
+    emit({"phase": "profile", "card": name_power, **prof,
+          "packed_tail_fused_share_of_device_busy":
+              prof["packed_tail_fused_ms_per_frame"]
+              / prof["device_busy_ms_per_frame"]})
 
     # 6b. times of the classical path at 1080x1920 RGBA -> 4x: inputs
     # rotate over 8 copies (66 MB), and each call writes 132.7 MB, so every
@@ -1122,10 +1161,10 @@ def main() -> int:
     run_lib = rotating(matmul_resize, c_in)
     c_call = time_ms(run_c, iters=10)
     d_call = time_ms(run_d, iters=10)
-    c_ms = device_ms(run_c, one_kernel=True)
-    d_ms = device_ms(run_d, one_kernel=True)
-    d_planar_ms = device_ms(run_d_planar, one_kernel=True)
-    c25_ms = device_ms(run_c25, one_kernel=True)
+    c_ms = device_ms(run_c, kernel="resize_plan_kernel")
+    d_ms = device_ms(run_d, kernel="resize_phase_kernel")
+    d_planar_ms = device_ms(run_d_planar, kernel="resize_phase_kernel")
+    c25_ms = device_ms(run_c25, kernel="resize_plan_kernel")
     c_plain = device_ms(run_c_plain, n=3, warmup=1)
     d_plain = device_ms(run_d_plain, n=3, warmup=1)
     lib_ms = device_ms(run_lib, n=5, warmup=2)
@@ -1197,10 +1236,10 @@ def main() -> int:
         x, b_row, b_colt, 4, left_f), c_in)
     e_call = time_ms(run_e, iters=10)
     f_call = time_ms(run_f, iters=10)
-    e_ms = device_ms(run_e, one_kernel=True)
-    e_planar_ms = device_ms(run_e_planar, one_kernel=True)
-    e_opaque_ms = device_ms(run_e_opaque, one_kernel=True)
-    f_ms = device_ms(run_f, one_kernel=True)
+    e_ms = device_ms(run_e, kernel="adaptive_kernel")
+    e_planar_ms = device_ms(run_e_planar, kernel="adaptive_kernel")
+    e_opaque_ms = device_ms(run_e_opaque, kernel="adaptive_kernel")
+    f_ms = device_ms(run_f, kernel="resize_banded_kernel")
     e_plain = device_ms(run_e_plain, n=2, warmup=1)
     e_graph = device_ms(run_e_graph, n=2, warmup=1)
     f_plain_ms = device_ms(run_f_plain, n=3, warmup=1)
@@ -1254,13 +1293,18 @@ def main() -> int:
     run_g_plain = rotating(lambda m, lr: pt.packed_tail_reference(
         m, lr, kout_g, bout_g), [a[:2] for a in g_in])
     g_call = time_ms(run_g, iters=10)
-    g_ms = device_ms(run_g, one_kernel=True)
-    gb_ms = device_ms(run_gb, one_kernel=True)
+    g_ms = device_ms(run_g, kernel="packed_tail_map_kernel")
+    gb_ms = device_ms(run_gb, kernel="packed_tail_map_kernel")
+    g_in = [(m.to(torch.bfloat16), lr) for m, lr, _, _ in g_in]
+    g_bf16_ms = device_ms(rotating(lambda m, lr: pt.packed_tail(
+        m, lr, kout_g, bout_g, layout="planar"), g_in),
+        kernel="packed_tail_map_kernel")
     g_plain = device_ms(run_g_plain, n=3, warmup=1)
     del g_in, gb_in
     torch.cuda.empty_cache()
     g_bound, g_by, g_bytes, g_flops = map_bound(h, w, 4, "zero")
     gb_bound, gb_by, _, _ = map_bound(hb, w, 4, "rows")
+    g_bf16_bound, g_bf16_by, _, _ = map_bound(h, w, 4, "zero", m_bytes=2)
     shard_ms = {}
     for n in (2, 4):
         serve = lambda f, n=n: sp.learned_resize_spatial_sharded(
@@ -1270,11 +1314,15 @@ def main() -> int:
                                runs=10))
     emit({"phase": "times_sharded", "card": name_power, "frame": [h, w, 4],
           "packed_tail_ms": g_ms, "packed_tail_band_of_4_ms": gb_ms,
+          "packed_tail_bf16_ms": g_bf16_ms,
           "packed_tail_plain_ms_no_yardstick": g_plain,
           "per_call_ms_with_host_launch": {"packed_tail": g_call},
           "packed_tail_bytes": g_bytes, "packed_tail_flops": g_flops,
           "packed_tail_bound_ms": g_bound, "packed_tail_bound_by": g_by,
           "packed_tail_band_of_4_bound_ms": gb_bound,
+          "packed_tail_band_of_4_bound_by": gb_by,
+          "packed_tail_bf16_bound_ms": g_bf16_bound,
+          "packed_tail_bf16_bound_by": g_bf16_by,
           "sharded_2_bands_call_device_ms": shard_ms[2][0],
           "sharded_2_bands_call_fetch_ms": shard_ms[2][1],
           "sharded_4_bands_call_device_ms": shard_ms[4][0],

@@ -171,6 +171,23 @@ def test_kernel_sources_are_listed():
     assert len(build._SIGNATURES) == 7
 
 
+def test_tail_kernels_share_the_tensor_core_header():
+    """Kernels A and G contract conv_out (and A its upsample) through one
+    MMA core: 3xTF32 (split by masks) on the f32 route, one bf16 pass on
+    the bf16 route; the header is part of the build's source hash."""
+    from bicubic_interpolation_model_tpu_torch.runtime import build
+    header = (build.CSRC / "tail_mma.cuh").read_text()
+    for ptx in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                "TF32_MASK", "cp.async.cg.shared.global"):
+        assert ptx in header
+    for name in ("packed_tail.cu", "packed_tail_map.cu"):
+        text = (build.CSRC / name).read_text()
+        assert '#include "tail_mma.cuh"' in text
+        assert "mma_chunk" in text and "cp_async16" in text
+    assert "tail_mma.cuh" in [p.name for p in build.CSRC.glob("*.cu*")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,c", GEOMETRIES)
 def test_kernel_a_matches_plain_on_card(cuda, h, w, c):
@@ -206,6 +223,66 @@ def test_kernel_a_opaque_alpha_and_batch_on_card(cuda):
                                args[1].flip(0).contiguous(), *args[2:],
                                layout="planar")
     assert torch.equal(two[1].view(torch.int32), one.view(torch.int32))
+
+
+# frames ragged for the kernels' 16-row (pixel) and 8-column (weight) MMA
+# tiles: a tile row shorter than 16 pixels, a single pixel, 130 columns
+MMA_EDGES = [(17, 23, 4), (1, 1, 3), (2, 130, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", MMA_EDGES)
+def test_kernel_a_mma_tile_edges_on_card(cuda, h, w, c):
+    """Pixels past the frame's edge feed zeros to the map and store
+    nothing: f32, bf16, opaque alpha and a batch of 3 against the plain
+    version."""
+    args = _tail_args(h, w, c, seed=3 * h + w, device=cuda, opaque=c == 4)
+    rng = np.random.default_rng(h * w)
+    y3 = torch.as_tensor(rng.normal(0, 0.5, (3, h, w, 32)).astype(
+        np.float32), device=cuda)
+    lr3 = torch.as_tensor(rng.integers(0, 256, (3, h, w, c)).astype(
+        np.float32), device=cuda)
+    for y, lr in ((args[0][None], args[1][None]), (y3, lr3)):
+        for yy in (y, y.to(torch.bfloat16)):
+            got = pt.packed_tail_fused(yy, lr, *args[2:], layout="planar")
+            ref = pt.packed_tail_fused_reference(yy, lr, *args[2:])
+            assert got.shape == (y.shape[0], 4, 4 * h, w)
+            mx, share = _diff(got, ref)
+            if yy.dtype == torch.float32:
+                assert mx <= 1 and share < 1e-3
+            else:
+                assert mx <= 2
+    if c == 4:
+        y, lr = args[0][None], args[1][None]
+        got = pt.packed_tail_fused(y, lr, *args[2:], layout="planar",
+                                   opaque_alpha=True)
+        ref = pt.packed_tail_fused_reference(y, lr, *args[2:],
+                                             opaque_alpha=True)
+        assert _diff(got, ref)[0] <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,halo", [g + ("zero",) for g in MMA_EDGES]
+                         + [(1, 23, 4, "rows"), (3, 130, 2, "rows"),
+                            (1, 1, 3, "rows")])
+def test_kernel_g_mma_tile_edges_on_card(cuda, h, w, c, halo):
+    """Kernel G at frames and bands of 1 and 3 rows that are ragged for
+    its MMA tiles: f32, bf16 maps and opaque alpha against the plain
+    version."""
+    args = _map_args(h, w, c, halo, seed=5 * h + w, device=cuda,
+                     opaque=c == 4)
+    got = pt.packed_tail(*args, layout="planar", halo=halo)
+    assert got.shape == (4, 4 * h, w)
+    mx, share = _diff(got, pt.packed_tail_reference(*args, halo=halo))
+    assert mx <= 1 and share < 1e-3
+    bf = (args[0].to(torch.bfloat16),) + args[1:]
+    gb = pt.packed_tail(*bf, layout="planar", halo=halo)
+    assert _diff(gb, pt.packed_tail_reference(*bf, halo=halo))[0] <= 2
+    if c == 4:
+        got = pt.packed_tail(*args, layout="planar", halo=halo,
+                             opaque_alpha=True)
+        ref = pt.packed_tail_reference(*args, halo=halo, opaque_alpha=True)
+        assert _diff(got, ref)[0] <= 1
 
 
 @pytest.mark.cuda
