@@ -8,8 +8,13 @@ C in 1..4, a batch in one launch:
     tmp[r, j, ch] = sum_k wy[r, k] * in[iy[r, k], j, ch]       (row pass)
     out[r, x, ch] = sum_t wx[x, t] * tmp[r, ix[x, t], ch]      (column pass)
 
-in f32, with the two :class:`~..core.plan.AxisPlan` s as device arrays
-(clamped taps already folded: duplicate indices add). uint8 in → JS-rounded
+in f32, from the two :class:`~..core.plan.AxisPlan` s (clamped taps already
+folded: duplicate indices add). The kernel reads each plan as bands
+(:func:`_bands`): per group of 4 consecutive outputs, the window of inputs
+their taps reach and the dense weights there, so its sums run over each
+output's taps in input order (zeros between them add nothing).
+:func:`resize_mxu_reference` sums the plan's taps in their own order: the
+two agree within 1 u8 LSB. uint8 in → JS-rounded
 uint8 out (``clip(trunc(v + 0.5), 0, 255)``); float in → float out,
 unrounded. The weights always use the reference's float division
 ``x / scale``; :func:`scale_fraction` only decides support.
@@ -26,8 +31,10 @@ from ..core import plan as planlib
 from ..runtime import build
 from ..runtime.device import as_device_tensor
 
-#: the kernel's output tile (csrc/resize_mxu.cu): rows x pixels per block
+#: the kernel's output tile (csrc/resize_mxu.cu): rows x pixels per block,
+#: and the outputs of one band group along each axis
 _TILE_R, _TILE_X = 32, 128
+_GROUP = 4
 
 
 def scale_fraction(scale: float, max_den: int = 16) -> Fraction | None:
@@ -119,22 +126,55 @@ def resize_mxu_reference(img_bhwc: torch.Tensor, iy: torch.Tensor,
     return out.to(torch.float32)
 
 
-def _tile_windows(idx: np.ndarray, tile: int):
-    """Per output tile the least input index any of its taps reads, and the
-    largest extent (greatest - least + 1) over the tiles — from the plan
-    itself, so any scale and any planner fit."""
-    n_out = idx.shape[0]
-    n_t = -(-n_out // tile)
-    pad = n_t * tile - n_out
-    lo = np.pad(idx.min(axis=1), (0, pad), mode="edge").reshape(n_t, tile)
-    hi = np.pad(idx.max(axis=1), (0, pad), mode="edge").reshape(n_t, tile)
-    lo, hi = lo.min(axis=1), hi.max(axis=1)
-    return lo.astype(np.int32), int((hi - lo).max()) + 1
+def _bands(idx: np.ndarray, w: np.ndarray, groups_per_tile: int):
+    """One axis plan as the kernel reads it: groups of ``_GROUP``
+    consecutive outputs, each with the window [lo, lo + width) of inputs its
+    taps reach and its dense weights there, band[g, j, i] for output
+    ``g*_GROUP + i`` at input ``lo[g] + j`` (duplicate, clamped taps summed
+    in float64, as ``plan_to_matrix`` does; zeros elsewhere and for outputs
+    past the end). Groups are padded to whole tiles (zero weights, the last
+    group's ``lo``). Returns (band f32 [n_g, width, 4], lo int32 [n_g])."""
+    n_out, k = idx.shape
+    n_t = -(-n_out // (_GROUP * groups_per_tile))
+    n_g = n_t * groups_per_tile
+    g = np.arange(n_out) // _GROUP
+    lo = np.full(n_g, np.iinfo(np.int64).max)
+    np.minimum.at(lo, g, idx.min(axis=1))
+    lo[g[-1] + 1:] = lo[g[-1]]
+    hi = np.zeros(n_g, np.int64)
+    np.maximum.at(hi, g, idx.max(axis=1))
+    width = int((hi[:g[-1] + 1] - lo[:g[-1] + 1]).max()) + 1
+    band = np.zeros((n_g, width, _GROUP), np.float64)
+    gg = np.repeat(g, k)
+    np.add.at(band, (gg, idx.reshape(-1) - lo[gg],
+                     np.repeat(np.arange(n_out) % _GROUP, k)),
+              w.astype(np.float64).reshape(-1))
+    return band.astype(np.float32), lo.astype(np.int32)
+
+
+def _axis_operands(idx: np.ndarray, w: np.ndarray, tile: int):
+    """One axis plan as kernel C reads it for a tile of ``tile`` outputs:
+    (band, lo, tile_lo, window). ``band`` is :func:`_bands`' tap major per
+    tile, f32 [n_tiles, width, tile / 4, 4]; ``tile_lo`` the least input
+    index a tile's group windows start at and ``window`` the largest extent
+    (greatest window end - that start) over the tiles: the input window the
+    kernel stages per tile, from the plan itself, so any scale and any
+    planner fit."""
+    gpt = tile // _GROUP
+    band, lo = _bands(idx, w, gpt)
+    starts = lo.reshape(-1, gpt)
+    tile_lo = starts.min(axis=1)
+    window = int((starts.max(axis=1) + band.shape[1] - tile_lo).max())
+    band = band.reshape(-1, gpt, band.shape[1], _GROUP).transpose(0, 2, 1, 3)
+    return (np.ascontiguousarray(band), lo, tile_lo.astype(np.int32),
+            window)
 
 
 def _operands(method, h, w, scale, a, lanczos_a, device, weight_cache):
-    """The two plans and the tiles' windows as device arrays, cached per
-    (h, w, scale, method, a, lanczos_a, device) in the caller's dict."""
+    """The two plans (for the plain version) and the kernel's operands
+    (each axis's bands and tile windows, the output extents) as device
+    arrays, cached per (h, w, scale, method, a, lanczos_a, device) in the
+    caller's dict."""
     key = (h, w, float(scale), method, float(a), int(lanczos_a), str(device))
     cached = weight_cache.get(key) if weight_cache is not None else None
     if cached is None:
@@ -142,24 +182,26 @@ def _operands(method, h, w, scale, a, lanczos_a, device, weight_cache):
               else {"a": lanczos_a} if method == "lanczos" else {})
         plan_y = planlib.plan_axis(method, h, float(scale), **kw)
         plan_x = planlib.plan_axis(method, w, float(scale), **kw)
-        row_lo, win_r = _tile_windows(plan_y.idx, _TILE_R)
-        col_lo, win_c = _tile_windows(plan_x.idx, _TILE_X)
+        band_y, lo_y, row_lo, win_r = _axis_operands(plan_y.idx, plan_y.w,
+                                                     _TILE_R)
+        band_x, lo_x, col_lo, win_c = _axis_operands(plan_x.idx, plan_x.w,
+                                                     _TILE_X)
         dev = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(
             device)
         cached = (dev(plan_y.idx), dev(plan_y.w), dev(plan_x.idx),
-                  dev(plan_x.w), dev(row_lo), dev(col_lo), win_r, win_c)
+                  dev(plan_x.w), dev(band_y), dev(lo_y), dev(row_lo),
+                  dev(band_x), dev(lo_x), dev(col_lo), win_r, win_c,
+                  plan_y.n_out, plan_x.n_out)
         if weight_cache is not None:
             weight_cache[key] = cached
     return cached
 
 
-def _launch(img, iy, wy, ix, wx, row_lo, col_lo, win_r, win_c):
+def _launch(img, band_y, lo_y, row_lo, band_x, lo_x, col_lo, win_r, win_c,
+            ho, wo):
     b, h, w, c = img.shape
-    if b > 65535:
-        raise ValueError(f"resize_mxu takes at most 65535 frames, got {b}")
     out_u8 = img.dtype == torch.uint8
     img = img.contiguous()
-    ho, wo = iy.shape[0], ix.shape[0]
     out = torch.empty((b, ho, wo, c), device=img.device,
                       dtype=torch.uint8 if out_u8 else torch.float32)
     if out.numel():
@@ -167,10 +209,11 @@ def _launch(img, iy, wy, ix, wx, row_lo, col_lo, win_r, win_c):
         with torch.cuda.device(img.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.bim_resize_mxu(
-                img.data_ptr(), int(out_u8), iy.data_ptr(), wy.data_ptr(),
-                ix.data_ptr(), wx.data_ptr(), row_lo.data_ptr(),
-                col_lo.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo,
-                iy.shape[1], ix.shape[1], win_r, win_c, stream)
+                img.data_ptr(), int(out_u8), band_y.data_ptr(),
+                lo_y.data_ptr(), row_lo.data_ptr(), band_x.data_ptr(),
+                lo_x.data_ptr(), col_lo.data_ptr(), out.data_ptr(), b, h, w,
+                c, ho, wo, band_y.shape[1], band_x.shape[1], win_r, win_c,
+                stream)
         if rc == -1:
             raise ValueError(
                 f"resize_mxu: a {win_r}x{win_c} input window per tile needs "
@@ -223,7 +266,7 @@ def resize_mxu(img, scale, method: str = "bicubic", *, a: float = -0.5,
     if img.device.type == "cpu":
         out = resize_mxu_reference(img, *ops[:4])
     elif img.device.type == "cuda":
-        out = _launch(img, *ops)
+        out = _launch(img, *ops[4:])
     else:
         raise ValueError(f"unsupported device {img.device}")
     if in_dtype != torch.uint8:

@@ -136,12 +136,13 @@ def _resize_spatial_mxu(x, s, method, a, lanczos_a, devs, hb):
     rows ``sl`` of the GLOBAL row plan (true-border clamps folded into its
     weights), indexed from the first real row its taps read, and the real
     rows [lo, hi) they reach: the same weights at the same taps as the
-    single-frame kernel, so the bytes are the same."""
+    single-frame kernel, which sums each output's taps in input order
+    whatever band group the output falls in, so the bytes are the same."""
     h, w, c = x.shape
     kw = _plan_kw(method, a, lanczos_a)
     plan_y = planlib.plan_axis(method, h, float(s), **kw)
     plan_x = planlib.plan_axis(method, w, float(s), **kw)
-    col_lo, win_c = mxu._tile_windows(plan_x.idx, mxu._TILE_X)
+    cols = mxu._axis_operands(plan_x.idx, plan_x.w, mxu._TILE_X)
     out_step = plan_y.n_out // len(devs)
     xf = x if x.dtype == torch.uint8 else x.to(torch.float32)
     col_ops: dict = {}
@@ -150,15 +151,18 @@ def _resize_spatial_mxu(x, s, method, a, lanczos_a, devs, hb):
         sl = slice(i * out_step, (i + 1) * out_step)
         lo, hi = int(plan_y.idx[sl].min()), int(plan_y.idx[sl].max()) + 1
         iy = plan_y.idx[sl] - np.int32(lo)
-        row_lo, win_r = mxu._tile_windows(iy, mxu._TILE_R)
         on = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
         if dev not in col_ops:
-            col_ops[dev] = (on(plan_x.idx), on(plan_x.w), on(col_lo))
-        ix, wx, clo = col_ops[dev]
+            col_ops[dev] = (on(plan_x.idx), on(plan_x.w), on(cols[0]),
+                            on(cols[1]), on(cols[2]))
+        ix, wx, band_x, lo_x, col_lo = col_ops[dev]
         win = xf[lo:hi].to(dev, non_blocking=True)[None]
         if dev.type == "cuda":
-            o = mxu._launch(win, on(iy), on(plan_y.w[sl]), ix, wx, on(row_lo),
-                            clo, win_r, win_c)
+            band_y, lo_y, row_lo, win_r = mxu._axis_operands(
+                iy, plan_y.w[sl], mxu._TILE_R)
+            o = mxu._launch(win, on(band_y), on(lo_y), on(row_lo), band_x,
+                            lo_x, col_lo, win_r, cols[3], out_step,
+                            plan_x.n_out)
         elif dev.type == "cpu":
             o = mxu.resize_mxu_reference(win, on(iy), on(plan_y.w[sl]), ix, wx)
         else:

@@ -23,33 +23,84 @@ import torch
 from .runtime.device import resolve_device
 
 
+def _host_view(a: np.ndarray, words: tuple | None) -> np.ndarray:
+    """RGBA32 words fetched as bytes ([H, 4W] uint8, ``words`` = (H, W))
+    viewed as HWC; anything else as it is."""
+    return a if words is None else a.reshape(words[0], words[1], 4)
+
+
+def _start_fetch(out: torch.Tensor, side: torch.cuda.Stream | None = None):
+    """Start the device→host copy of a serving result; returns a callable
+    that completes it and gives the host array (HWC uint8 for RGBA32 words,
+    2-D uint32, whose little-endian bytes are the frame).
+
+    On the card the bytes go with ``non_blocking=True`` into pinned memory
+    of the result's own: on ``side``, a stream that first waits on an event
+    recorded after the work that made ``out``, so the copy overlaps whatever
+    the caller dispatches next, or on the current stream. The callable
+    waits on that copy's event alone and returns a numpy view of the pinned
+    block, which stays valid as long as the array lives and then goes back
+    to PyTorch's host cache for a later frame (a consumer that drops its
+    frames reuses a few blocks; one that keeps N frames holds N pinned
+    blocks). ``out`` is held until the copy is done, so its device memory is
+    not reused under the copy. A CPU tensor is viewed as numpy, as it
+    always was."""
+    words = tuple(out.shape) if (out.dtype == torch.uint32
+                                 and out.dim() == 2) else None
+    if words is not None:
+        out = out.contiguous().view(torch.uint8)
+    if out.device.type != "cuda":
+        return lambda: _host_view(out.cpu().numpy(), words)
+    pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    stream = torch.cuda.current_stream(out.device)
+    if side is not None:
+        made = torch.cuda.Event()
+        made.record(stream)
+        side.wait_event(made)
+        stream = side
+    with torch.cuda.stream(stream):
+        pinned.copy_(out, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(stream)
+
+    def finish():
+        nonlocal out
+        copied.synchronize()
+        out = None                       # copied: its device memory may go
+        return _host_view(pinned.numpy(), words)
+    return finish
+
+
 def _fetch(out):
-    """Materialize a serving result on the host as HWC uint8.
-    RGBA32 words (2-D uint32) are fetched and byte-viewed as HWC; anything
-    else is a plain copy to numpy."""
-    a = out.cpu().numpy()
-    if a.dtype == np.uint32 and a.ndim == 2:
-        from .ops.interleave import rgba32_to_hwc_np
-        return rgba32_to_hwc_np(a, a.shape[0], a.shape[1])
-    return a
+    """Materialize a serving result on the host as HWC uint8 (RGBA32 words,
+    2-D uint32, byte-viewed as HWC): :func:`_start_fetch` on the current
+    stream, waited for at once."""
+    return _start_fetch(out)()
 
 
-def _stream_grouped(frames, single, batched, group_size, fetch_single):
+def _stream_grouped(frames, single, batched, group_size):
     """Group consecutive SAME-SHAPE frames up to ``group_size(img)`` per
-    launch, keep one dispatch in flight (yield frame i-1 while i computes),
-    and preserve output order."""
-    def dispatch(group):
-        if len(group) == 1:
-            return (single(group[0]), 1)
-        return (batched(np.stack(group)), len(group))
+    launch and preserve output order. Each group's device→host copy starts
+    on a side stream as soon as its kernels are dispatched, and the next
+    group is dispatched before the generator waits on that copy: on the
+    card frame i-1's copy overlaps frame i's kernels."""
+    side = None
 
-    def emit(out, n):
+    def dispatch(group):
+        nonlocal side
+        out = single(group[0]) if len(group) == 1 else batched(
+            np.stack(group))
+        if side is None and out.device.type == "cuda":
+            side = torch.cuda.Stream(out.device)
+        return _start_fetch(out, side), len(group)
+
+    def emit(finish, n):
+        host = finish()
         if n == 1:
-            yield fetch_single(out)
+            yield host
             return
-        arr = out.cpu().numpy()            # [B, H', W', C] device batch
-        for i in range(n):
-            yield arr[i]
+        for i in range(n):                 # [B, H', W', C]
+            yield host[i]
 
     pending = None
     group: list[np.ndarray] = []
@@ -181,7 +232,7 @@ class Upscaler:
 
         yield from _stream_grouped(
             frames, lambda img: self(img, fetch=False),
-            lambda g: self.batch(g, fetch=False), group_size, _fetch)
+            lambda g: self.batch(g, fetch=False), group_size)
 
 
 @dataclasses.dataclass
@@ -243,7 +294,7 @@ class ModelUpscaler:
         from .models.inference import super_resolve_batch
         lrs = torch.as_tensor(lrs_u8).to(self._device)
         out = super_resolve_batch(self.model, self.params, lrs, **self._kw())
-        return out.cpu().numpy() if fetch else out
+        return _fetch(out) if fetch else out
 
     #: below this LR pixel count, stream() groups frames
     MICROBATCH_THRESHOLD_PX = 256 * 256
@@ -266,4 +317,4 @@ class ModelUpscaler:
 
         yield from _stream_grouped(
             frames, lambda img: self(img, fetch=False),
-            lambda g: self.batch(g, fetch=False), group_size, _fetch)
+            lambda g: self.batch(g, fetch=False), group_size)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import itertools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -126,6 +127,24 @@ def device_ms(fn, n=20, warmup=3, kernel=None):
     return sum(durations) / 1e3 / len(durations)
 
 
+def ptxas_summary(log):
+    """One line per kernel instance of a source's ``ptxas -v`` report: the
+    kernel with its template arguments, its registers and its spills."""
+    lines, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            m = re.search(r"([A-Za-z_]+kernel)I((?:L[ib]\d+E)+)E", name)
+            if m:
+                name = m.group(1) + "<" + ",".join(
+                    re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            lines.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spill}")
+    return lines
+
+
 def diff_u8(a, b):
     a = a.to(torch.int64)
     b = b.to(torch.int64)
@@ -207,17 +226,24 @@ def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
 def adaptive_bound(b, h, w, c, s, texture_share):
     """Least time of adaptive bicubic [b, h, w, c] u8 -> [b, h*s, w*s, c]:
     bytes (input read once, output written once) over HBM rate, useful f32
-    operations over the f32 peak. Per output pixel 16 taps x (2 products
-    for the weight, 1 add for its sum, 2 per channel) and the normalise
-    (a reciprocal, a product and the rounding add per channel); per LR
-    pixel the luma (5), the 25-tap variance (79), the class (2) and, for
-    each centre variant, 16 factors of a luma distance (2) and a law (3
-    for edge and flat; 4 for texture, exp counted as one, by this run's
-    share of texture centres)."""
+    operations over the f32 peak, counted in the factored order (the least
+    count known, the one kernel E runs). Per LR pixel the luma (5), the
+    25-tap variance (79) and the class (2); per centre variant 16 factors of
+    a luma distance (2) and a law (3 for edge and flat, 4 for texture, exp
+    counted as one); per (centre variant, row phase) 16 products a = wy*F,
+    12 adds of their column sums and 16 multiply-adds per channel; per
+    output pixel 4 multiply-adds per channel and for the weight sum and the
+    normalise (a reciprocal, a product and the rounding add per channel);
+    for texture centres the exemption term (3 adds and a product per
+    (variant, row phase); 3 adds, a product and a multiply-add per channel
+    and for the sum per output pixel), by this run's share of texture
+    centres."""
     n_lr, n_out = b * h * w, b * h * s * w * s
     variants = 4 if s > 1 else 1
-    per_out = 16 * (3 + 2 * c) + 1 + 2 * c
-    per_lr = 5 + 79 + 2 + variants * 16 * (2 + 3 + texture_share)
+    row_phases = 2 * s if s > 1 else 1      # (variant, row phase) pairs
+    per_lr = (5 + 79 + 2 + variants * 16 * (2 + 3 + texture_share)
+              + row_phases * (16 + 12 + 32 * c + 4 * texture_share))
+    per_out = 8 * (c + 1) + 1 + 2 * c + texture_share * (4 + 2 * (c + 1))
     nbytes = n_lr * c + n_out * c
     flops = n_out * per_out + n_lr * per_lr
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -640,9 +666,7 @@ def main() -> int:
 
     # 2. build
     rec = build.build(force=True)
-    ptxas = {src: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln]
-             for src, log in rec["ptxas"].items()}
+    ptxas = {src: ptxas_summary(log) for src, log in rec["ptxas"].items()}
     build.library()
     emit({"phase": "build", "seconds": round(rec["seconds"], 3),
           "sources": [s.name for s in build.sources()], "ptxas": ptxas})
@@ -1153,6 +1177,11 @@ def main() -> int:
         chw = x[0].permute(2, 0, 1).to(torch.float32)
         return round_u8(torch.matmul(torch.matmul(m_row, chw),
                                      m_col_t).permute(1, 2, 0)).contiguous()
+    # the store floor: one fill of a 132.7 MB output (bytes out only)
+    fill_out = torch.empty((1, HD[0] * 4, HD[1] * 4, 4), dtype=torch.uint8,
+                           device=dev)
+    store_floor = device_ms(lambda: fill_out.fill_(7))
+    del fill_out
     lib_err = diff_u8(matmul_resize(c_in[0][0]),
                       mxu.resize_mxu(c_in[0][0], 4, "bicubic")[0])
     if lib_err[0] > 1:
@@ -1196,6 +1225,7 @@ def main() -> int:
           "resize_mxu_plain_ms_no_yardstick": c_plain,
           "resize_phase_plain_ms_no_yardstick": d_plain,
           "resize_matmul_library_ms": lib_ms,
+          "store_floor_fill_132_7_mb_ms": store_floor,
           "per_call_ms_with_host_launch": {"resize_mxu": c_call,
                                            "resize_phase": d_call},
           "bytes": cd_bytes, "flops": cd_flops, "bound_ms": cd_bound,
@@ -1276,6 +1306,65 @@ def main() -> int:
               "adaptive_resize_fused_ms_per_frame": "adaptive_kernel",
               "memcpy_dtoh_ms_per_frame": "Memcpy DtoH",
               "memcpy_htod_ms_per_frame": "Memcpy HtoD"})})
+
+    # 6c'. stream() against N x __call__ on 8 fetched 1080x1920 RGBA -> 4x
+    # frames, bicubic and adaptive: host clock around all 8 host results,
+    # in turns call / stream / stream / call; then one device result's
+    # device->host copy in three forms,
+    # 4 results kept per round: pageable, the serving form
+    # (serving._start_fetch: pinned memory of each result's own, recycled by
+    # PyTorch's host cache once a round's results are dropped) and one
+    # pinned buffer reused, each result copied out into an owned array
+    from bicubic_interpolation_model_tpu_torch.serving import _start_fetch
+    overlap = {"phase": "stream_overlap", "card": name_power, "frames": 8,
+               "frame": [*HD, 4], "scale": 4}
+    for label, server, frames8 in (("bicubic", up4, list(hd[:8])),
+                                   ("adaptive", up_ad, list(ad[:8]))):
+        runs: dict = {"call": [], "stream": []}
+        same, last = True, None
+        for mode in ("call", "stream", "stream", "call"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = ([server(f) for f in frames8] if mode == "call"
+                   else list(server.stream(iter(frames8))))
+            runs[mode].append((time.perf_counter() - t0) * 1e3 / 8)
+            # each run's frames against the run before; one run's frames
+            # are dropped before the next but one, as a consumer that
+            # drops its frames lets their pinned blocks serve later ones
+            same = same and len(got) == 8 and (last is None or all(
+                np.array_equal(a, b) for a, b in zip(got, last)))
+            last = got
+            del got
+        del last
+        overlap[label] = {"call_ms_per_frame": runs["call"],
+                          "stream_ms_per_frame": runs["stream"],
+                          "stream_bytes_equal_call": same}
+        if not same:
+            raise AssertionError(f"stream() and __call__ differ ({label})")
+    dev_out = up4(frame_dev, fetch=False)
+    ring = torch.empty(dev_out.shape, dtype=dev_out.dtype, pin_memory=True)
+    fetch_forms: dict = {}
+    for _ in range(2):
+        for form in ("pageable", "pinned_own_storage",
+                     "pinned_buffer_copied_out"):
+            kept = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                if form == "pageable":
+                    kept.append(dev_out.cpu().numpy())
+                elif form == "pinned_own_storage":
+                    kept.append(_start_fetch(dev_out)())
+                else:
+                    ring.copy_(dev_out, non_blocking=True)
+                    torch.cuda.current_stream().synchronize()
+                    kept.append(ring.clone().numpy())
+            fetch_forms.setdefault(form, []).append(
+                (time.perf_counter() - t0) * 1e3 / 4)
+            del kept
+    overlap["fetch_one_result_ms"] = fetch_forms
+    del dev_out, ring
+    emit(overlap)
 
     # 6d. times of kernel G at 348x510 (halo="zero") and on one band of 4
     # (halo="rows"), inputs rotated over two copies (two maps are 727 MB,

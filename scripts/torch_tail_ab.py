@@ -1,23 +1,31 @@
-"""Kernels A and G of the PyTorch/CUDA port: an earlier revision against the
-checkout's, on one card.
+"""Kernels A, G, E and C of the PyTorch/CUDA port: an earlier revision
+against the checkout's, on one card.
 
     python3 scripts/torch_tail_ab.py PARENT_CSRC
 
-PARENT_CSRC holds an earlier revision's ``packed_tail.cu`` and
-``packed_tail_map.cu`` (for example from ``git show
-REV:bicubic_interpolation_model_tpu_torch/csrc/packed_tail.cu``), with the
-same C entry points. The script builds them with nvcc (sm_90a) into a
+PARENT_CSRC holds an earlier revision's ``packed_tail.cu``,
+``packed_tail_map.cu``, ``adaptive.cu`` and ``resize_mxu.cu`` with the
+headers they include (``tail_mma.cuh``, ``resize_common.cuh``; for example
+from ``git show REV:bicubic_interpolation_model_tpu_torch/csrc/NAME``), with
+the same C entry points. The script builds them with nvcc (sm_90a) into a
 library of their own in a temporary directory, loads the checkout's kernel
-library as the port does, and drives both through the port's wrappers
-(``ops/packed_tail.packed_tail_fused`` and ``packed_tail``): first each
-revision once against the plain PyTorch versions, then device times in
-turns parent / change / change / parent, with ``chip_smoke.device_ms`` (mean
-device duration per launch in one profiler trace of 20 launches, inputs
-rotated over copies larger than the L2) at the main path's shapes: kernel A
-at 348x510 RGBA with f32 and bf16 features, kernel G on the whole 348x510
-frame (f32 and bf16 maps) and on one band of 4 (87 rows, ``halo="rows"``).
-Prints one JSON line per check and per reading, the card's name and power
-limit, and a summary line last. Imports nothing of JAX.
+library as the port does, and drives both: A, G and E through the port's
+wrappers (``ops/packed_tail.packed_tail_fused``, ``packed_tail``,
+``ops/adaptive_fused.adaptive_resize_fused``), C through the wrapper for the
+checkout and, for a parent whose ``bim_resize_mxu`` takes the axis plans
+themselves (before the bands of ``ops/mxu._bands``), through those plans and
+their tile windows. First each revision once against the plain PyTorch
+versions, then device times in turns parent / change / change / parent,
+with ``chip_smoke.device_ms`` (mean device duration per launch in one
+profiler trace of 20 launches, inputs rotated over copies larger than the
+L2) at the main paths' shapes: kernel A at 348x510 RGBA with f32 and bf16
+features, kernel G on the whole 348x510 frame (f32 and bf16 maps) and on one
+band of 4 (87 rows, ``halo="rows"``), kernel E at 1080x1920 RGBA frames of
+all three region classes -> 4x in the hwc, planar and opaque-alpha layouts,
+kernel C at 1080x1920 RGBA -> 4x and 2.5x bicubic. Where a kernel's source
+did not change, its two revisions are the same code and their readings show
+the spread. Prints one JSON line per check and per reading, the card's name
+and power limit, and a summary line last. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,13 +41,17 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
+
 import chip_smoke as cs  # noqa: E402
 from bicubic_interpolation_model_tpu_torch.ops import (  # noqa: E402
-    packed_tail as pt)
+    adaptive_fused as adf, mxu, packed_tail as pt)
 from bicubic_interpolation_model_tpu_torch.runtime import build  # noqa: E402
 
-SOURCES = ("packed_tail.cu", "packed_tail_map.cu")
-ENTRIES = ("bim_packed_tail_fused", "bim_packed_tail_map")
+SOURCES = ("packed_tail.cu", "packed_tail_map.cu", "adaptive.cu",
+           "resize_mxu.cu")
+ENTRIES = ("bim_packed_tail_fused", "bim_packed_tail_map",
+           "bim_adaptive_resize", "bim_resize_mxu")
 
 
 def parent_library(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
@@ -68,6 +80,40 @@ def parent_library(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
         fn.argtypes = build._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
+
+
+def plan_windows(idx: np.ndarray, tile: int):
+    """Per output tile the least input index its taps read and the largest
+    extent over the tiles: the windows of a kernel C that takes the plans
+    themselves (the parent's ``ops/mxu._tile_windows``)."""
+    n_t = -(-idx.shape[0] // tile)
+    pad = n_t * tile - idx.shape[0]
+    lo = np.pad(idx.min(axis=1), (0, pad), mode="edge").reshape(n_t, tile)
+    hi = np.pad(idx.max(axis=1), (0, pad), mode="edge").reshape(n_t, tile)
+    lo, hi = lo.min(axis=1), hi.max(axis=1)
+    return lo.astype(np.int32), int((hi - lo).max()) + 1
+
+
+def plan_resize_mxu(img, iy, wy, ix, wx):
+    """Kernel C of a revision whose ``bim_resize_mxu`` takes the axis plans
+    (iy, wy, ix, wx) and per-tile windows: u8 [1, h, w, 4] -> u8."""
+    b, h, w, c = img.shape
+    row_lo, win_r = plan_windows(iy.cpu().numpy(), mxu._TILE_R)
+    col_lo, win_c = plan_windows(ix.cpu().numpy(), mxu._TILE_X)
+    row_lo, col_lo = (torch.from_numpy(a).to(img.device)
+                      for a in (row_lo, col_lo))
+    ho, wo = iy.shape[0], ix.shape[0]
+
+    def run(x):
+        out = torch.empty((b, ho, wo, c), dtype=torch.uint8, device=x.device)
+        rc = build.library().bim_resize_mxu(
+            x.data_ptr(), 1, iy.data_ptr(), wy.data_ptr(), ix.data_ptr(),
+            wx.data_ptr(), row_lo.data_ptr(), col_lo.data_ptr(),
+            out.data_ptr(), b, h, w, c, ho, wo, iy.shape[1], ix.shape[1],
+            win_r, win_c, torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "resize_mxu (plans)")
+        return out
+    return run
 
 
 def main() -> int:
@@ -111,10 +157,48 @@ def main() -> int:
              "g_frame_f32": (run_g("zero"), plain_g("zero"), g_f32, 1),
              "g_frame_bf16": (run_g("zero"), plain_g("zero"), g_bf, 2),
              "g_band_of_4_f32": (run_g("rows"), plain_g("rows"), gb_in, 1)}
+    kernel_of = {name: ("packed_tail_fused_kernel" if name.startswith("a_")
+                        else "packed_tail_map_kernel") for name in cases}
+
+    # kernel E: 8 all-class 1080x1920 RGBA frames (66 MB in, 132.7 MB out
+    # per call); kernel C: 8 noise frames
+    rng = np.random.default_rng(23)
+    e_in = [(torch.from_numpy(f[None]).to(dev),)
+            for f in cs.all_class_frames(rng, 8, *cs.HD, 4)]
+    c_in = [(torch.from_numpy(f[None]).to(dev),)
+            for f in cs.u8_frames(rng, 8, *cs.HD, 4)]
+    wts_e = adf._weights(*cs.HD, 4, -0.5, dev, None)
+    for layout, opaque in (("hwc", False), ("planar", False), ("hwc", True)):
+        name = "e_" + ("opaque_alpha" if opaque else layout)
+        cases[name] = (
+            lambda x, layout=layout, opaque=opaque: adf.adaptive_resize_fused(
+                x, 4, layout=layout, opaque_alpha=opaque),
+            lambda x, layout=layout, opaque=opaque:
+                adf.adaptive_resize_reference(x, *wts_e, 4, layout=layout,
+                                              opaque_alpha=opaque),
+            e_in, 1)
+        kernel_of[name] = "adaptive_kernel"
+    c_runs = {}
+    for scale in (4, 2.5):
+        name = f"c_{scale}x".replace(".", "_")
+        ops = mxu._operands("bicubic", *cs.HD, scale, -0.5, 3, dev, None)
+        cases[name] = (lambda x, scale=scale: mxu.resize_mxu(x, scale),
+                       lambda x, ops=ops: mxu.resize_mxu_reference(
+                           x, *ops[:4]), c_in, 1)
+        c_runs[name] = plan_resize_mxu(c_in[0][0], *ops[:4])
+        kernel_of[name] = "resize_plan_kernel"
+    # the parent's kernel C takes the plans unless its sources take bands
+    parent_plans = "lo_y" not in (parent_csrc / "resize_mxu.cu").read_text()
+
+    def runner(rev, name):
+        if rev == "parent" and parent_plans and name in c_runs:
+            return c_runs[name]
+        return cases[name][0]
+
     for rev in ("parent", "change"):
         build._lib = libs[rev]
-        for name, (run, plain, inputs, tol) in cases.items():
-            got = run(*inputs[0])
+        for name, (_, plain, inputs, tol) in cases.items():
+            got = runner(rev, name)(*inputs[0])
             torch.cuda.synchronize()
             mx, share = cs.diff_u8(got.view(torch.uint8),
                                    plain(*inputs[0]).view(torch.uint8))
@@ -125,10 +209,9 @@ def main() -> int:
     ms: dict = {}
     for rev in ("parent", "change", "change", "parent"):
         build._lib = libs[rev]
-        for name, (run, _, inputs, _) in cases.items():
-            t = cs.device_ms(cs.rotating(run, inputs), kernel=(
-                "packed_tail_fused_kernel" if name.startswith("a_")
-                else "packed_tail_map_kernel"))
+        for name, (_, _, inputs, _) in cases.items():
+            t = cs.device_ms(cs.rotating(runner(rev, name), inputs),
+                             kernel=kernel_of[name])
             ms.setdefault(name, {}).setdefault(rev, []).append(t)
             cs.emit({"phase": "time", "revision": rev, "case": name,
                      "ms": t})

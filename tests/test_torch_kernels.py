@@ -13,13 +13,16 @@ share of differing bytes < 1e-3 at f32 and with opaque alpha, ≤2 LSB with
 bf16 features (sums in another order); kernel G the same as A, on both
 halos; kernel B bit-equal (a copy);
 kernels C and D ≤1 u8 LSB from their plain versions at f32 (nvcc contracts
-a*b+c to FMA, PyTorch does not) with a share of differing bytes < 1e-3, and
-≤1 LSB from the plain versions at float64; ``nearest`` bit-equal; float
-inputs within 1e-3 absolute on a 0-255 range; kernel F the same as C and D;
-kernel E ≤1 u8 LSB from its plain version at f32 and float64 with a share of
-differing bytes < 1e-3 (FMA contraction, ``expf`` against ``torch.exp``) and
-the same region class at every pixel (its variance stage is written without
-contraction in the plain version's order of summation). Sharded paths on
+a*b+c to FMA, PyTorch does not; kernel C sums each output's taps in input
+order from its bands) with a share of differing bytes < 1e-3, and ≤1 LSB
+from the plain versions at float64; ``nearest`` bit-equal; float inputs
+within 1e-3 absolute on a 0-255 range; kernel F the same as C and D; kernel
+E ≤1 u8 LSB from its plain version at f32 and float64 with a share of
+differing bytes < 1e-3 (its sums factored per centre variant, FMA
+contraction, approximate ``ex2`` and reciprocal against ``torch.exp`` and a
+division) and the same region class at every pixel (its variance stage is
+written without contraction in the plain version's order of summation).
+``stream`` on the card yields ``__call__``'s bytes. Sharded paths on
 the card: classical, adaptive and batch bands byte-equal to the
 single-frame kernels (each band runs them on the same weights), learned
 bands ≤1 LSB from the sharded graph tail and ≤2 from the single-frame
@@ -744,3 +747,75 @@ def test_sharded_classical_adaptive_and_batch_on_card(cuda):
     out = resize_batch_sharded(imgs, 4, mesh=_card_mesh(cuda, 4, "data"))
     assert phase.resize_phase.launches == d0 + 4
     assert out.is_cuda and torch.equal(out, phase.resize_phase(imgs, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_kernels_c_and_e_on_ragged_tile_counts_on_card(cuda, batch):
+    """Frames whose tile count is no multiple of the 132 SMs (kernel C's
+    persistent blocks walk 32 x 128-pixel tiles, kernel E launches one
+    block per 8 x 32 LR pixels), ragged at both edges, batches of 1 and 3;
+    kernel C at integer and rational scales with u8 and f32 input, and on a
+    band-sharded frame whose bands split its 4-row groups; kernel E in all
+    three layouts and in passes."""
+    from bicubic_interpolation_model_tpu_torch.parallel.spatial import (
+        resize_spatial_sharded)
+    img = _frames(batch, batch, 203, 331, 4, cuda)
+    for scale in (4, 2.5, 1.25):
+        cache = {}
+        got = mxu.resize_mxu(img, scale, "bicubic", weight_cache=cache)
+        ops = next(iter(cache.values()))
+        mx, share = _diff_u8(got, mxu.resize_mxu_reference(img, *ops[:4]))
+        assert mx <= 1 and share < 1e-3
+        assert torch.equal(got[-1], mxu.resize_mxu(img[-1], scale, "bicubic"))
+        gf = mxu.resize_mxu(img.float(), scale, "bicubic")
+        assert float((gf - mxu.resize_mxu_reference(
+            img.float(), *ops[:4])).abs().max()) < 1e-3
+    # 12 rows x 3 over 4 bands: 9 output rows per band
+    frame = _frames(8, 1, 12, 50, 3, cuda)[0]
+    assert torch.equal(resize_spatial_sharded(frame, 3, "lanczos",
+                                              mesh=_card_mesh(cuda, 4)),
+                       mxu.resize_mxu(frame, 3, "lanczos"))
+    for c in (3, 4):
+        frames = _all_class_frames(batch + c, batch, 203, 331, c, cuda)
+        for s, stage in ((4, 0), (3, 0), (4, 2), (15, 0)):
+            wts = adf._weights(203, 331, s, -0.5, cuda, None)
+            got = adf.adaptive_resize_fused(frames, s, stage_phases=stage)
+            mx, share = _diff_u8(got, adf.adaptive_resize_reference(
+                frames, *wts, s))
+            assert mx <= 1 and share < 1e-3
+            planar = adf.adaptive_resize_fused(frames, s, layout="planar",
+                                               stage_phases=stage)
+            assert torch.equal(adf.unpack_planar(planar, 203, 331, s, c), got)
+            assert torch.equal(got[-1], adf.adaptive_resize_fused(
+                frames[-1], s, stage_phases=stage))
+            if c == 4:
+                opq = frames.clone()
+                opq[..., 3] = 255
+                assert _diff_u8(adf.adaptive_resize_fused(
+                    opq, s, opaque_alpha=True, stage_phases=stage),
+                    adf.adaptive_resize_reference(
+                        opq, *wts, s, opaque_alpha=True))[0] <= 1
+
+
+@pytest.mark.cuda
+def test_stream_keeps_every_frame_and_equals_calls_on_card(cuda):
+    """stream() on the card stages each copy through pinned memory on a
+    side stream; every yielded frame, kept in a list, equals __call__'s
+    bytes in order, over shapes that break the groups."""
+    from bicubic_interpolation_model_tpu_torch.serving import (
+        ModelUpscaler, Upscaler)
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, 256, (4, 40, 56, 4), dtype=np.uint8)
+    b = rng.integers(0, 256, (2, 24, 32, 4), dtype=np.uint8)
+    seq = [a[0], a[1], b[0], a[2], a[3], b[1]]
+    servers = [Upscaler(scale=4), Upscaler(scale=2.5),
+               Upscaler(scale=4, method="adaptive"),
+               ModelUpscaler(str(ROOT / "model" / "wp-1e-3-120"))]
+    for server in servers:
+        for microbatch in ("auto", 2, None):
+            kept = list(server.stream(iter(seq), microbatch=microbatch))
+            assert len(kept) == len(seq)
+            for frame, got in zip(seq, kept):
+                assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+                np.testing.assert_array_equal(got, server(frame))

@@ -204,13 +204,95 @@ def test_downscale_and_bad_shapes_rejected():
 
 def test_tile_windows_cover_every_tap():
     """The windows the kernel stages come from the plan: every tap of a
-    tile's rows lies in [lo, lo + extent)."""
+    tile's outputs lies in the tile's window [lo, lo + extent), and the
+    bands it reads are the plan densified per group of 4 outputs."""
     from bicubic_interpolation_model_tpu_torch.core import plan as planlib
     for method in METHODS:
         for scale in (1.0, 1.25, 1.5, 2.5, 4.0):
             p = planlib.plan_axis(method, 300, scale)
-            lo, extent = mxu._tile_windows(p.idx, 32)
-            assert lo.dtype == np.int32 and len(lo) == -(-p.n_out // 32)
-            for t in range(len(lo)):
+            band, lo, tile_lo, extent = mxu._axis_operands(p.idx, p.w, 32)
+            n_t = -(-p.n_out // 32)
+            assert tile_lo.dtype == np.int32 and len(tile_lo) == n_t
+            assert band.shape == (n_t, band.shape[1], 8, 4)
+            for t in range(n_t):
                 rows = p.idx[t * 32:(t + 1) * 32]
-                assert rows.min() == lo[t] and rows.max() < lo[t] + extent
+                assert rows.min() == tile_lo[t]
+                assert rows.max() < tile_lo[t] + extent
+                assert (lo[t * 8:(t + 1) * 8] + band.shape[1]
+                        <= tile_lo[t] + extent).all()
+            dense = np.zeros((n_t * 32, 300 + band.shape[1]))
+            for g in range(n_t * 8):
+                dense[g * 4:g * 4 + 4, lo[g]:lo[g] + band.shape[1]] = (
+                    band[g // 8, :, g % 8, :].T)
+            np.testing.assert_allclose(dense[:p.n_out, :300],
+                                       planlib.plan_to_matrix(p), atol=1e-7)
+            assert not dense[p.n_out:].any() and not dense[:, 300:].any()
+
+
+def _banded_pass(x, band, lo, n_out, axis):
+    """One pass as kernel C sums it: per output, its group's dense weights
+    over the group's window, in input order (zero weights past the image)."""
+    width = band.shape[1]
+    b = band.permute(0, 2, 1, 3).reshape(-1, width, 4)      # [n_g, width, 4]
+    shape = [1] * x.dim()
+    shape[axis] = n_out
+    acc = None
+    for j in range(width):
+        idx = (lo.long()[:, None] + j).expand(-1, 4).reshape(-1)[:n_out]
+        term = (b[:, j, :].reshape(-1)[:n_out].reshape(shape)
+                * x.index_select(axis, idx.clamp(max=x.shape[axis] - 1)))
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def banded_resize(img_bhwc, ops):
+    """Kernel C's arithmetic on the CPU in f32 (row pass first), from the
+    operands ``_operands`` gives it; the wrapper's rounding."""
+    band_y, lo_y, _, band_x, lo_x, _, _, _, ho, wo = ops[4:]
+    tmp = _banded_pass(img_bhwc.float(), band_y, lo_y, ho, 1)
+    out = _banded_pass(tmp, band_x, lo_x, wo, 2)
+    if img_bhwc.dtype == torch.uint8:
+        return torch.clamp(torch.trunc(out + 0.5), 0, 255).to(torch.uint8)
+    return out
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("scale", [1, 1.25, 2.5, 3, 4])
+def test_banded_sum_matches_the_plain_version_and_oracle(method, scale):
+    """The bands' order of summation (each output's taps in input order,
+    duplicate clamped taps summed first) stays within 1 u8 LSB of the plain
+    version and of the float64 oracle, and ``nearest`` bit-equal; float
+    inputs within 1e-3."""
+    for h, w, c in [(23, 37, 4), (13, 9, 3), (40, 70, 1)]:
+        img = torch.from_numpy(_image(h * w + c, h, w, c))[None]
+        ops = mxu._operands(method, h, w, scale, -0.5, 3, "cpu", None)
+        got = banded_resize(img, ops)
+        ref = mxu.resize_mxu_reference(img, *ops[:4])
+        mx, share = _delta(got[0].numpy(), ref[0].numpy())
+        assert mx <= (0 if method == "nearest" else 1) and share < 1e-3
+        assert _delta(got[0].numpy(), mxu.resize_mxu_reference(
+            img, *ops[:4], dtype=torch.float64)[0].numpy())[0] <= 1
+        gf = banded_resize(img.float(), ops)
+        assert float((gf - mxu.resize_mxu_reference(
+            img.float(), *ops[:4])).abs().max()) < 1e-3
+
+
+def test_bands_of_a_plan_slice_give_the_same_bytes():
+    """Band-sharded kernel C builds bands from a slice of the global row
+    plan whose groups need not line up with the frame's; each output's sum
+    is its taps in input order either way, so the bytes are the same."""
+    from bicubic_interpolation_model_tpu_torch.core import plan as planlib
+    img = torch.from_numpy(_image(7, 30, 20, 4))[None]
+    full = banded_resize(img, mxu._operands("lanczos", 30, 20, 2.5, -0.5, 3,
+                                            "cpu", None))
+    p = planlib.plan_axis("lanczos", 30, 2.5, a=3)
+    for start in (3, 26, 41):
+        sl = p.idx[start:]
+        lo = int(sl.min())
+        band, glo, _, _ = mxu._axis_operands(sl - lo, p.w[start:], 32)
+        tmp = _banded_pass(img[:, lo:].float(), torch.from_numpy(band),
+                           torch.from_numpy(glo), p.n_out - start, 1)
+        ops = mxu._operands("lanczos", 30, 20, 2.5, -0.5, 3, "cpu", None)
+        part = _banded_pass(tmp, ops[7], ops[8], ops[13], 2)
+        part = torch.clamp(torch.trunc(part + 0.5), 0, 255).to(torch.uint8)
+        assert torch.equal(part, full[:, start:])

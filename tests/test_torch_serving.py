@@ -15,7 +15,7 @@ import torch
 from bicubic_interpolation_model_tpu_torch.models.inference import (
     super_resolve)
 from bicubic_interpolation_model_tpu_torch.serving import (
-    ModelUpscaler, _fetch)
+    ModelUpscaler, Upscaler, _fetch, _start_fetch)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CKPT = ROOT / "model" / "wp-1e-3-120"
@@ -69,6 +69,50 @@ def test_fetch_views_rgba32_words_as_hwc():
     words = torch.from_numpy(hwc.copy()).view(torch.uint32)[..., 0]
     assert np.array_equal(_fetch(words), hwc)
     assert np.array_equal(_fetch(torch.from_numpy(hwc)), hwc)
+
+
+def test_start_fetch_views_a_cpu_result_as_it_is():
+    rng = np.random.default_rng(4)
+    hwc = rng.integers(0, 256, (5, 6, 4), dtype=np.uint8)
+    words = torch.from_numpy(hwc.copy()).view(torch.uint32)[..., 0]
+    batch = rng.integers(0, 256, (2, 5, 6, 3), dtype=np.uint8)
+    for out, want in ((words, hwc), (torch.from_numpy(hwc), hwc),
+                      (torch.from_numpy(batch), batch)):
+        got = _start_fetch(out)()
+        assert got.dtype == np.uint8 and np.array_equal(got, want)
+
+
+def _drain_keeping(stream):
+    """Every array ``stream`` yields, each checked unchanged whenever the
+    generator has advanced past it."""
+    kept, copies = [], []
+    for arr in stream:
+        for a, c in zip(kept, copies):
+            assert np.array_equal(a, c)
+        kept.append(arr)
+        copies.append(np.array(arr, copy=True))
+    for a, c in zip(kept, copies):
+        assert np.array_equal(a, c)
+    return kept
+
+
+@pytest.mark.parametrize("kind", ["learned", "bicubic", "adaptive"])
+@pytest.mark.parametrize("microbatch", ["auto", 2, None])
+def test_stream_equals_calls_in_order_and_keeps_earlier_arrays(
+        up, kind, microbatch):
+    """``stream`` yields N x ``__call__``'s bytes in order, over shapes that
+    break the groups, and an array it yielded stays as it was while the
+    generator runs on (on the card each frame's copy is staged through
+    pinned memory that later frames reuse)."""
+    a, b = _frames(4, 12, 16, seed=5), _frames(2, 8, 8, seed=6)
+    seq = [a[0], a[1], a[2], b[0], a[3], b[1]]
+    server = up if kind == "learned" else Upscaler(
+        scale=4, method=kind, device="cpu")
+    got = _drain_keeping(server.stream(iter(seq), microbatch=microbatch))
+    assert len(got) == len(seq)
+    for frame, arr in zip(seq, got):
+        assert arr.dtype == np.uint8
+        assert np.array_equal(arr, server(frame))
 
 
 def test_needs_a_card_unless_cpu_is_asked():
