@@ -74,29 +74,6 @@ __host__ __device__ inline Layout layout(int c, int esize, bool u8, int ky, int 
   return L;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-// clip(trunc(v), 0, 255) in the low byte (v = the sum + 0.5: the u8
-// accumulators start at 0.5)
-__device__ __forceinline__ uint32_t round_bits(float v) {
-  const float y = fminf(fmaxf(v, 0.f), 255.f);
-  return __float_as_uint(__fadd_rd(y, 8388608.f));
-}
-
-__device__ __forceinline__ uint32_t pack4(const float (&v)[4]) {
-  const uint32_t lo = __byte_perm(round_bits(v[0]), round_bits(v[1]), 0x1140);
-  const uint32_t hi = __byte_perm(round_bits(v[2]), round_bits(v[3]), 0x1140);
-  return __byte_perm(lo, hi, 0x5410);
-}
-
 struct Geometry {
   int b, h, w, ho, wo, ky, kx, win_r, win_c, tiles_x, tiles_y;
 };

@@ -15,7 +15,10 @@ The reference's clamp semantics are folded into the band weights (duplicate
 clamped taps accumulate onto one input column), and the zero padding that
 gives every tile a window of one size carries zero weight. uint8 in → uint8
 out (``clip(floor(v + 0.5))``); float in → float out, unrounded. Integer
-upscales only. The tile is the port's own: 16 x 32 LR pixels.
+upscales only. The tile is the port's own: 8 x 32 LR pixels. The kernel
+runs both products on the tensor cores and contracts, per 16-row slab of
+``B_row`` and 16-column slab of ``B_colT``, only the 8-deep blocks of K that
+hold a non-zero weight (:func:`_block_ranges`, computed beside the bands).
 """
 
 from __future__ import annotations
@@ -30,8 +33,13 @@ from .phase import _LEFT_EXTENT, _as_bhwc
 from .resize import _full_f32_matmul, round_u8
 
 #: LR rows and columns of one output tile (csrc/resize_banded.cu takes any
-#: tile whose output rows are a multiple of 8 and columns a multiple of 4)
-_STEP_H, _STEP_W = 16, 32
+#: tile whose output rows are a multiple of 8 and columns of 16, and band
+#: windows whose K is a multiple of 8)
+_STEP_H, _STEP_W = 8, 32
+#: rows of B_row and columns of B_colT per block range (the M of the
+#: kernel's m16n8k8 row product and of its transposed column product), and
+#: the depth of a block (its k8)
+_SLAB_ROW, _SLAB_COL, _KB = 16, 16, 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -62,10 +70,30 @@ def _banded(plan: planlib.AxisPlan, tile_out: int, k_pad: int,
     return bands
 
 
+def _block_ranges(bands: np.ndarray, slab: int) -> np.ndarray:
+    """Per band and per slab of ``slab`` rows of ``bands`` [n, rows, K],
+    the first 8-deep block of K that holds a non-zero weight and one past
+    the last, as int32 [n, ceil(rows / slab), 2]; (0, 0) for a slab with
+    none. The kernel contracts only these blocks: the others add exact
+    zeros."""
+    n, rows, k = bands.shape
+    n_sl = -(-rows // slab)
+    nz = np.zeros((n, n_sl * slab, k), bool)
+    nz[:, :rows] = bands != 0
+    blocks = nz.reshape(n, n_sl, slab, k // _KB, _KB).any(axis=(2, 4))
+    any_ = blocks.any(axis=-1)
+    lo = np.where(any_, blocks.argmax(axis=-1), 0)
+    hi = np.where(any_, blocks.shape[-1] - blocks[..., ::-1].argmax(axis=-1),
+                  0)
+    return np.stack([lo, hi], axis=-1).astype(np.int32)
+
+
 def _bands(method, h, w, s, a, lanczos_a, device, weight_cache):
-    """Device-resident (B_row [nI, TH, KH], B_colT [nJ, KW, TW], left),
-    cached per (h, w, s, method, a, lanczos_a, device) in the caller's
-    dict."""
+    """Device-resident (B_row [nI, TH, KH], B_colT [nJ, KW, TW], left,
+    the block ranges of B_row's 16-row slabs [nI, ceil(TH/16), 2] and of
+    B_colT's 16-column slabs [nJ, TW/16, 2], the longest column range), cached
+    per (h, w, s, method, a, lanczos_a, device) in the caller's dict; the
+    first three are the plain version's arguments."""
     key = ("banded", h, w, s, method, float(a), int(lanczos_a), str(device))
     cached = weight_cache.get(key) if weight_cache is not None else None
     if cached is None:
@@ -74,13 +102,18 @@ def _bands(method, h, w, s, a, lanczos_a, device, weight_cache):
         plan_y = planlib.plan_axis(method, h, float(s), **kw)
         plan_x = planlib.plan_axis(method, w, float(s), **kw)
         left = lanczos_a - 1 if method == "lanczos" else _LEFT_EXTENT[method]
-        k_h = _STEP_H + plan_y.taps
-        k_w = _round_up(_STEP_W + plan_x.taps, 4)
+        k_h = _round_up(_STEP_H + plan_y.taps, _KB)
+        k_w = _round_up(_STEP_W + plan_x.taps, _KB)
         b_row = _banded(plan_y, _STEP_H * s, k_h, left)
-        b_colt = np.ascontiguousarray(
-            _banded(plan_x, _STEP_W * s, k_w, left).transpose(0, 2, 1))
+        b_col = _banded(plan_x, _STEP_W * s, k_w, left)
+        k_row = _block_ranges(b_row, _SLAB_ROW)
+        k_col = _block_ranges(b_col, _SLAB_COL)
         cached = (torch.from_numpy(b_row).to(device),
-                  torch.from_numpy(b_colt).to(device), left)
+                  torch.from_numpy(np.ascontiguousarray(
+                      b_col.transpose(0, 2, 1))).to(device), left,
+                  torch.from_numpy(k_row).to(device),
+                  torch.from_numpy(k_col).to(device),
+                  max(1, int((k_col[..., 1] - k_col[..., 0]).max())))
         if weight_cache is not None:
             weight_cache[key] = cached
     return cached
@@ -114,7 +147,7 @@ def resize_banded_reference(img_bhwc: torch.Tensor, b_row: torch.Tensor,
     return out.to(torch.float32).contiguous()
 
 
-def _launch(img, b_row, b_colt, s, left):
+def _launch(img, b_row, b_colt, s, left, k_row, k_col, kbc):
     b, h, w, c = img.shape
     if b > 65535:
         raise ValueError(f"resize_banded takes at most 65535 frames, got {b}")
@@ -130,8 +163,9 @@ def _launch(img, b_row, b_colt, s, left):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.bim_resize_banded(
                 img.data_ptr(), int(out_u8), b_row.data_ptr(),
-                b_colt.data_ptr(), out.data_ptr(), b, h, w, c, h * s, w * s,
-                n_i, n_j, th, tw, k_h, k_w, s, left, stream)
+                b_colt.data_ptr(), k_row.data_ptr(), k_col.data_ptr(),
+                out.data_ptr(), b, h, w, c, h * s, w * s, n_i, n_j, th, tw,
+                k_h, k_w, s, left, kbc, stream)
         if rc == -1:
             raise ValueError(
                 f"resize_banded: scale {s} with a {k_h}x{k_w} window per "
@@ -162,12 +196,12 @@ def resize_banded(img, scale, method: str = "bicubic", *, a: float = -0.5,
     if in_dtype != torch.uint8:
         img = img.to(torch.float32)
     h, w = img.shape[1:3]
-    b_row, b_colt, left = _bands(method, h, w, s, float(a), int(lanczos_a),
-                                 img.device, weight_cache)
+    bands = _bands(method, h, w, s, float(a), int(lanczos_a), img.device,
+                   weight_cache)
     if img.device.type == "cpu":
-        out = resize_banded_reference(img, b_row, b_colt, s, left)
+        out = resize_banded_reference(img, *bands[:2], s, bands[2])
     elif img.device.type == "cuda":
-        out = _launch(img, b_row, b_colt, s, left)
+        out = _launch(img, *bands[:2], s, *bands[2:])
     else:
         raise ValueError(f"unsupported device {img.device}")
     if in_dtype != torch.uint8:

@@ -15,7 +15,8 @@ uint8 in → JS-rounded uint8 out (``clip(trunc(v + 0.5), 0, 255)``); float in
 ``layout="planar"`` is ``[B, S, H*S, W*C]`` (column phase planar, rows
 interleaved). The kernel takes its extents at run time, so outputs have the
 exact extents (the JAX form pads them to its tile grid; the valid region is
-the same).
+the same). The kernel reads the same weights restaged in the order its
+threads read them (:func:`_kernel_weights`).
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ import torch
 from ..core import plan as planlib
 from ..runtime import build
 from ..runtime.device import as_device_tensor
+
+#: LR rows and columns of one tile of csrc/resize_phase.cu, and the phases
+#: a thread takes in each pass (its TILE_R, TILE_X and PH; the kernel takes
+#: tiles of TILE_R / 2 rows where TILE_R would not fit its shared memory)
+_TILE_R, _TILE_X, _PH = 16, 32, 4
 
 # Left extent of each kernel's tap window relative to floor(ox): bicubic
 # taps start at floor(ox)-1, lanczos-a at floor(ox)-a+1, the rest at 0.
@@ -86,6 +92,25 @@ def _interleave_wrow(wrow_np, s, taps):
     return wrow_np.reshape(rows, s, taps).reshape(rows * s, taps)
 
 
+def _kernel_weights(wrow_np, wcol_np, s, taps):
+    """The plan arrays restaged for the kernel, zero past the image and
+    past phase S: rows ``[ceil(H/16)*16, G, T, 4]`` with
+    ``[r, g, t, i] = wrow[r, (4g+i)*T + t]``; columns
+    ``[ceil(W/32), G, T, 32, 4]`` with
+    ``[tx, g, m, x, i] = wcol[(4g+i)*T + m, 32*tx + x]``; G = ceil(S/4)
+    phase groups."""
+    h, w = wrow_np.shape[0], wcol_np.shape[1]
+    g = -(-s // _PH)
+    rows = np.zeros((-(-h // _TILE_R) * _TILE_R, g * _PH, taps), np.float32)
+    rows[:h, :s] = wrow_np.reshape(h, s, taps)
+    rows = rows.reshape(-1, g, _PH, taps).transpose(0, 1, 3, 2)
+    n_tx = -(-w // _TILE_X)
+    cols = np.zeros((g * _PH, taps, n_tx * _TILE_X), np.float32)
+    cols[:s, :, :w] = wcol_np.reshape(s, taps, w)
+    cols = cols.reshape(g, _PH, taps, n_tx, _TILE_X).transpose(3, 0, 2, 4, 1)
+    return np.ascontiguousarray(rows), np.ascontiguousarray(cols)
+
+
 def _shifted(x, t, axis, n):
     """``x`` shifted so index i along ``axis`` reads ``x[i + t]``, zero
     outside ``[0, n)``."""
@@ -133,9 +158,11 @@ def resize_phase_reference(img_bhwc: torch.Tensor, wrow: torch.Tensor,
     return out.permute(0, 2, 3, 1, 4).reshape(b, h * s, w * s, c)
 
 
-def _phase_call(img_bhwc, wrow, wcol, *, s, taps, left, layout="hwc"):
-    """Dispatch on the tensor's device: CUDA launches the kernel (or
-    raises), CPU runs the plain version."""
+def _phase_call(img_bhwc, weights, *, s, layout="hwc"):
+    """Dispatch on the tensor's device: CUDA launches the kernel on the
+    restaged weights (or raises), CPU runs the plain version. ``weights``
+    as :func:`_weights` gives them."""
+    wrow, wcol, taps, left, wrow_k, wcol_k = weights
     if layout not in ("hwc", "planar"):
         raise ValueError(f"unknown layout {layout!r}")
     b, h, w, c = img_bhwc.shape
@@ -164,8 +191,8 @@ def _phase_call(img_bhwc, wrow, wcol, *, s, taps, left, layout="hwc"):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = lib.bim_resize_phase(
-                img_bhwc.data_ptr(), int(out_u8), wrow.data_ptr(),
-                wcol.data_ptr(), out.data_ptr(), b, h, w, c, s, taps, left,
+                img_bhwc.data_ptr(), int(out_u8), wrow_k.data_ptr(),
+                wcol_k.data_ptr(), out.data_ptr(), b, h, w, c, s, taps, left,
                 int(layout == "planar"), stream)
         if rc == -1:
             raise ValueError(f"resize_phase: scale {s} with {taps} taps "
@@ -176,8 +203,10 @@ def _phase_call(img_bhwc, wrow, wcol, *, s, taps, left, layout="hwc"):
 
 
 def _weights(method, h, w, s, a, lanczos_a, device, weight_cache):
-    """Device-resident (wrow [h*S, T], wcol [S*T, w], taps, left), cached
-    per (h, w, s, method, a, lanczos_a, device) in the caller's dict."""
+    """Device-resident (wrow [h*S, T], wcol [S*T, w], taps, left, and the
+    kernel's restaged wrow and wcol from :func:`_kernel_weights`), cached
+    per (h, w, s, method, a, lanczos_a, device) in the caller's dict; the
+    first four are the plain version's arguments."""
     key = (h, w, s, method, float(a), int(lanczos_a), str(device))
     cached = weight_cache.get(key) if weight_cache is not None else None
     if cached is None:
@@ -185,7 +214,9 @@ def _weights(method, h, w, s, a, lanczos_a, device, weight_cache):
             method, h, w, s, float(a), int(lanczos_a))
         cached = (torch.from_numpy(
             _interleave_wrow(wrow_np, s, taps)).to(device),
-            torch.from_numpy(wcol_np).to(device), taps, left)
+            torch.from_numpy(wcol_np).to(device), taps, left,
+            *(torch.from_numpy(arr).to(device)
+              for arr in _kernel_weights(wrow_np, wcol_np, s, taps)))
         if weight_cache is not None:
             weight_cache[key] = cached
     return cached
@@ -225,10 +256,9 @@ def resize_phase(img, scale, method: str = "bicubic", *, a: float = -0.5,
     if layout == "planar" and (squeeze_b or squeeze_hw):
         raise ValueError("layout='planar' requires BHWC input")
     h, w = img.shape[1:3]
-    wrow, wcol, taps, left = _weights(method, h, w, s, a, lanczos_a,
-                                      img.device, weight_cache)
-    out = _phase_call(img, wrow, wcol, s=s, taps=taps, left=left,
-                      layout=layout)
+    weights = _weights(method, h, w, s, a, lanczos_a, img.device,
+                       weight_cache)
+    out = _phase_call(img, weights, s=s, layout=layout)
     if squeeze_b:
         out = out[0]
     return out[..., 0] if squeeze_hw else out

@@ -40,8 +40,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bim_adaptive_resize": [_P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bim_resize_banded": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _P],
+    "bim_resize_banded": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

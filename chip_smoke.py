@@ -210,6 +210,43 @@ def tail_bound(h, w, c, y_bytes):
             products + other)
 
 
+def banded_products(b, c, k_row, k_col, kw, th):
+    """Kernel F's tensor-core products as launched on ``b`` frames of ``c``
+    channels and tiles of ``th`` output rows: FLOPs of the row product (per
+    row tile, 16-row slab and n8 tile of kw*c columns, the k8 blocks of the
+    slab's range) and of the transposed column product (per column tile,
+    16-column slab and channel, over the th/8 n8 tiles of rows of each row
+    tile), 2 x 16 x 8 x 8 a block, for u8 frames; and their time at the
+    TF32 rate, the row product in 2 passes (a u8 window has no lo part) and
+    the column product in 3. Returns (flops, ms)."""
+    k_row, k_col = (np.asarray(k.cpu()) for k in (k_row, k_col))
+    block = 2 * 16 * 8 * 8
+    row = int((k_row[..., 1] - k_row[..., 0]).sum()) * (kw * c // 8) \
+        * k_col.shape[0] * block * b
+    col = int((k_col[..., 1] - k_col[..., 0]).sum()) * k_row.shape[0] \
+        * (th // 8) * c * block * b
+    return row + col, (2 * row + 3 * col) / TF32_FLOP_PER_S * 1e3
+
+
+def sass_hmma(lib_path):
+    """Count of HMMA instructions per kernel in the built library's SASS
+    (cuobjdump of the CUDA toolkit), for the kernels that hold any; None
+    without cuobjdump."""
+    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    counts, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"([A-Za-z_]+kernel)I", ln)
+            fn = m.group(1) if m else ln.split("Function :")[1].strip()
+        elif "HMMA" in ln:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
     """Least time of a separable resize [b, h, w, c] -> [b, ho, wo, c]:
     bytes (input read once, output written once) over HBM rate, useful f32
@@ -462,7 +499,7 @@ def check_kernel_f(banded, mxu, dev, emit_fn):
                 cache = {}
                 got = banded.resize_banded(img, s, method, weight_cache=cache)
                 torch.cuda.synchronize()
-                b_row, b_colt, left = next(iter(cache.values()))
+                b_row, b_colt, left = next(iter(cache.values()))[:3]
                 ref = lambda x, **k: banded.resize_banded_reference(
                     x, b_row, b_colt, s, left, **k)
                 mx, share = diff_u8(got, ref(img))
@@ -552,7 +589,7 @@ def check_kernel_d(phase, dev, emit_fn):
                 kw = dict(lanczos_a=lanczos_a, weight_cache=cache)
                 got = phase.resize_phase(img, s, method, **kw)
                 torch.cuda.synchronize()
-                wrow, wcol, taps, left = next(iter(cache.values()))
+                wrow, wcol, taps, left = next(iter(cache.values()))[:4]
                 ref = lambda x, **k: phase.resize_phase_reference(
                     x, wrow, wcol, s, taps, left, **k)
                 mx, share = diff_u8(got, ref(img))
@@ -669,7 +706,8 @@ def main() -> int:
     ptxas = {src: ptxas_summary(log) for src, log in rec["ptxas"].items()}
     build.library()
     emit({"phase": "build", "seconds": round(rec["seconds"], 3),
-          "sources": [s.name for s in build.sources()], "ptxas": ptxas})
+          "sources": [s.name for s in build.sources()], "ptxas": ptxas,
+          "sass_hmma": sass_hmma(build.BUILD_DIR / build.LIB_NAME)})
 
     # 3. kernel A vs its plain version (batches of 3 at the MMA edges)
     a_err = 0
@@ -813,7 +851,7 @@ def main() -> int:
                              f"as expected: {launches_cd}")
     plans4 = next(iter(up4._weight_cache.values()))[:4]
     plans25 = next(iter(up25._weight_cache.values()))[:4]
-    wrow, wcol, taps_d, left_d = next(iter(up_ph._weight_cache.values()))
+    wrow, wcol, taps_d, left_d = next(iter(up_ph._weight_cache.values()))[:4]
     checks = [(o, hd[i], 4, lambda x: mxu.resize_mxu_reference(
         x, *plans4, dtype=torch.float64)) for i, o in enumerate(hd_outs)]
     checks.append((out25, hd[0], 2.5, lambda x: mxu.resize_mxu_reference(
@@ -937,7 +975,7 @@ def main() -> int:
     class_share = [float((cls_full == k).double().mean()) for k in range(3)]
     del words, batch_ad
     b_row, b_colt, left_f = banded._bands("bicubic", *HD, 4, -0.5, 3, dev,
-                                          None)
+                                          None)[:3]
     f_plain = diff_u8(out_f, banded.resize_banded_reference(
         ad_dev[:1], b_row, b_colt, 4, left_f)[0])
     f_f64 = diff_u8(out_f, banded.resize_banded_reference(
@@ -1276,6 +1314,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     e_bound, e_by, e_bytes, e_flops = adaptive_bound(1, *HD, 4, 4,
                                                      class_share[0])
+    # kernel F's tensor-core products as launched on this frame, beside its
+    # bytes bound (its function's bound is resize_bound's)
+    f_ops = next(iter(wc_f.values()))
+    f_products = banded_products(1, 4, f_ops[3], f_ops[4], f_ops[1].shape[1],
+                                 f_ops[0].shape[1])
     ad_frame_dev = ad_dev[0]
     ad_dev_ms = time_ms(lambda: up_ad(ad_frame_dev, fetch=False), iters=10)
     ad_host_ms = time_ms(lambda: up_ad(ad[0]), runs=5, warmup=2)
@@ -1296,6 +1339,8 @@ def main() -> int:
           "share_texture_flat_edge": class_share,
           "resize_banded_bound_ms": cd_bound,
           "resize_banded_bound_by": cd_by,
+          "resize_banded_products_flops": f_products[0],
+          "resize_banded_products_3xtf32_ms": f_products[1],
           "upscaler_adaptive_call_device_ms": ad_dev_ms,
           "upscaler_adaptive_call_fetch_ms": ad_host_ms,
           "output_gpix_per_s_device": ho * wo / ad_dev_ms / 1e6,

@@ -1,11 +1,12 @@
-"""Kernels A, G, E and C of the PyTorch/CUDA port: an earlier revision
-against the checkout's, on one card.
+"""Kernels A, G, E, C, D and F of the PyTorch/CUDA port: an earlier
+revision against the checkout's, on one card.
 
     python3 scripts/torch_tail_ab.py PARENT_CSRC
 
 PARENT_CSRC holds an earlier revision's ``packed_tail.cu``,
-``packed_tail_map.cu``, ``adaptive.cu`` and ``resize_mxu.cu`` with the
-headers they include (``tail_mma.cuh``, ``resize_common.cuh``; for example
+``packed_tail_map.cu``, ``adaptive.cu``, ``resize_mxu.cu``,
+``resize_phase.cu`` and ``resize_banded.cu`` with the headers they include
+(``tail_mma.cuh``, ``resize_common.cuh``; for example
 from ``git show REV:bicubic_interpolation_model_tpu_torch/csrc/NAME``), with
 the same C entry points. The script builds them with nvcc (sm_90a) into a
 library of their own in a temporary directory, loads the checkout's kernel
@@ -14,7 +15,12 @@ wrappers (``ops/packed_tail.packed_tail_fused``, ``packed_tail``,
 ``ops/adaptive_fused.adaptive_resize_fused``), C through the wrapper for the
 checkout and, for a parent whose ``bim_resize_mxu`` takes the axis plans
 themselves (before the bands of ``ops/mxu._bands``), through those plans and
-their tile windows. First each revision once against the plain PyTorch
+their tile windows; D and F through the wrappers for the checkout and, for a
+parent whose ``bim_resize_phase`` takes the plan arrays as they are (before
+``ops/phase._kernel_weights``) or whose ``bim_resize_banded`` takes no block
+ranges (before ``ops/banded._block_ranges``), through those arrays and that
+revision's own 16 x 32 tile bands. First each revision once against the plain
+PyTorch
 versions, then device times in turns parent / change / change / parent,
 with ``chip_smoke.device_ms`` (mean device duration per launch in one
 profiler trace of 20 launches, inputs rotated over copies larger than the
@@ -22,7 +28,8 @@ L2) at the main paths' shapes: kernel A at 348x510 RGBA with f32 and bf16
 features, kernel G on the whole 348x510 frame (f32 and bf16 maps) and on one
 band of 4 (87 rows, ``halo="rows"``), kernel E at 1080x1920 RGBA frames of
 all three region classes -> 4x in the hwc, planar and opaque-alpha layouts,
-kernel C at 1080x1920 RGBA -> 4x and 2.5x bicubic. Where a kernel's source
+kernel C at 1080x1920 RGBA -> 4x and 2.5x bicubic, kernel D (hwc and
+planar) and F at 1080x1920 RGBA -> 4x bicubic. Where a kernel's source
 did not change, its two revisions are the same code and their readings show
 the spread. Prints one JSON line per check and per reading, the card's name
 and power limit, and a summary line last. Imports nothing of JAX.
@@ -44,17 +51,24 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from bicubic_interpolation_model_tpu_torch.core import (  # noqa: E402
+    plan as planlib)
 from bicubic_interpolation_model_tpu_torch.ops import (  # noqa: E402
-    adaptive_fused as adf, mxu, packed_tail as pt)
+    adaptive_fused as adf, banded, mxu, packed_tail as pt, phase)
 from bicubic_interpolation_model_tpu_torch.runtime import build  # noqa: E402
 
 SOURCES = ("packed_tail.cu", "packed_tail_map.cu", "adaptive.cu",
-           "resize_mxu.cu")
+           "resize_mxu.cu", "resize_phase.cu", "resize_banded.cu")
 ENTRIES = ("bim_packed_tail_fused", "bim_packed_tail_map",
-           "bim_adaptive_resize", "bim_resize_mxu")
+           "bim_adaptive_resize", "bim_resize_mxu", "bim_resize_phase",
+           "bim_resize_banded")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# bim_resize_banded of a revision without block ranges
+BANDED_NO_RANGES = [_P, _I, _P, _P, _P] + [_I] * 14 + [_P]
 
 
-def parent_library(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
+def parent_library(csrc: pathlib.Path, out: pathlib.Path,
+                   banded_ranges: bool) -> ctypes.CDLL:
     nvcc = build._nvcc()
     objs = []
     for name in SOURCES:
@@ -77,7 +91,8 @@ def parent_library(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     for name in ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = build._SIGNATURES[name]
+        fn.argtypes = (BANDED_NO_RANGES if name == "bim_resize_banded"
+                       and not banded_ranges else build._SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
 
@@ -116,6 +131,55 @@ def plan_resize_mxu(img, iy, wy, ix, wx):
     return run
 
 
+def plan_resize_phase(img, layout):
+    """Kernel D of a revision whose ``bim_resize_phase`` takes the plan
+    arrays as they are (wrow [h*4, T], wcol [4*T, w]): u8 [b, h, w, c] ->
+    4x bicubic in ``layout``."""
+    b, h, w, c = img.shape
+    wrow, wcol, taps, left = phase._weights("bicubic", h, w, 4, -0.5, 3,
+                                            img.device, None)[:4]
+    planar = layout == "planar"
+    shape = (b, 4, h * 4, w * c) if planar else (b, h * 4, w * 4, c)
+
+    def run(x):
+        out = torch.empty(shape, dtype=torch.uint8, device=x.device)
+        rc = build.library().bim_resize_phase(
+            x.data_ptr(), 1, wrow.data_ptr(), wcol.data_ptr(),
+            out.data_ptr(), b, h, w, c, 4, taps, left, int(planar),
+            torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "resize_phase (plan arrays)")
+        return out
+    return run
+
+
+def ranges_free_resize_banded(img):
+    """Kernel F of a revision whose ``bim_resize_banded`` takes no block
+    ranges, on its own bands (tiles of 16 x 32 LR pixels, windows of 16 +
+    taps rows and 32 + taps columns rounded up to 4): u8 [b, h, w, c] ->
+    4x bicubic."""
+    b, h, w, c = img.shape
+    s, left = 4, 1
+    plans = [planlib.plan_axis("bicubic", n, 4.0, a=-0.5) for n in (h, w)]
+    k_h = 16 + plans[0].taps
+    k_w = -(-(32 + plans[1].taps) // 4) * 4
+    b_row = torch.from_numpy(banded._banded(plans[0], 16 * s, k_h, left))
+    b_colt = torch.from_numpy(np.ascontiguousarray(banded._banded(
+        plans[1], 32 * s, k_w, left).transpose(0, 2, 1)))
+    b_row, b_colt = b_row.to(img.device), b_colt.to(img.device)
+
+    def run(x):
+        out = torch.empty((b, h * s, w * s, c), dtype=torch.uint8,
+                          device=x.device)
+        rc = build.library().bim_resize_banded(
+            x.data_ptr(), 1, b_row.data_ptr(), b_colt.data_ptr(),
+            out.data_ptr(), b, h, w, c, h * s, w * s, b_row.shape[0],
+            b_colt.shape[0], 16 * s, 32 * s, k_h, k_w, s, left,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(rc, "resize_banded (no ranges)")
+        return out
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_tail_ab: no CUDA device visible", file=sys.stderr)
@@ -124,8 +188,10 @@ def main() -> int:
     dev = torch.device("cuda")
     name_power = cs.card()
     libs = {"change": build.library()}
+    banded_ranges = "krow" in (parent_csrc / "resize_banded.cu").read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        libs["parent"] = parent_library(parent_csrc, pathlib.Path(tmp))
+        libs["parent"] = parent_library(parent_csrc, pathlib.Path(tmp),
+                                        banded_ranges)
 
     h, w = cs.FRAME
     hb = h // 4
@@ -187,12 +253,37 @@ def main() -> int:
                            x, *ops[:4]), c_in, 1)
         c_runs[name] = plan_resize_mxu(c_in[0][0], *ops[:4])
         kernel_of[name] = "resize_plan_kernel"
-    # the parent's kernel C takes the plans unless its sources take bands
-    parent_plans = "lo_y" not in (parent_csrc / "resize_mxu.cu").read_text()
+    # kernels D and F at 4x bicubic on the same 8 frames
+    wrow, wcol, taps, left = phase._weights("bicubic", *cs.HD, 4, -0.5, 3,
+                                            dev, None)[:4]
+    for layout in ("hwc", "planar"):
+        name = "d_" + layout
+        cases[name] = (
+            lambda x, layout=layout: phase.resize_phase(x, 4, layout=layout),
+            lambda x, layout=layout: phase.resize_phase_reference(
+                x, wrow, wcol, 4, taps, left, layout=layout), c_in, 1)
+        kernel_of[name] = "resize_phase_kernel"
+    f_ops = banded._bands("bicubic", *cs.HD, 4, -0.5, 3, dev, None)
+    cases["f"] = (lambda x: banded.resize_banded(x, 4),
+                  lambda x: banded.resize_banded_reference(
+                      x, f_ops[0], f_ops[1], 4, f_ops[2]), c_in, 1)
+    kernel_of["f"] = "resize_banded_kernel"
+    # the parent's kernel C takes the plans unless its sources take bands;
+    # its D the plan arrays unless its sources name the restaged weights;
+    # its F no block ranges unless its sources take them
+    parent_runs = {}
+    if "lo_y" not in (parent_csrc / "resize_mxu.cu").read_text():
+        parent_runs.update(c_runs)
+    if "_kernel_weights" not in (parent_csrc / "resize_phase.cu").read_text():
+        for layout in ("hwc", "planar"):
+            parent_runs["d_" + layout] = plan_resize_phase(c_in[0][0],
+                                                           layout)
+    if not banded_ranges:
+        parent_runs["f"] = ranges_free_resize_banded(c_in[0][0])
 
     def runner(rev, name):
-        if rev == "parent" and parent_plans and name in c_runs:
-            return c_runs[name]
+        if rev == "parent" and name in parent_runs:
+            return parent_runs[name]
         return cases[name][0]
 
     for rev in ("parent", "change"):

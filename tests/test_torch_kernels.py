@@ -111,7 +111,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(got, mxu.resize_mxu_reference(img, *ops[:4]))
     cache = {}
     got = phase.resize_phase(img, 3, "lanczos", weight_cache=cache)
-    wrow, wcol, taps, left = next(iter(cache.values()))
+    wrow, wcol, taps, left = next(iter(cache.values()))[:4]
     assert torch.equal(got, phase.resize_phase_reference(img, wrow, wcol, 3,
                                                          taps, left))
     assert (mxu.resize_mxu.launches, phase.resize_phase.launches) == (c0, d0)
@@ -368,7 +368,7 @@ def test_kernel_d_matches_plain_on_card(cuda, method, s):
         before = phase.resize_phase.launches
         got = phase.resize_phase(img, s, method, weight_cache=cache)
         assert phase.resize_phase.launches == before + 1
-        wrow, wcol, taps, left = next(iter(cache.values()))
+        wrow, wcol, taps, left = next(iter(cache.values()))[:4]
         ref = phase.resize_phase_reference(img, wrow, wcol, s, taps, left)
         mx, share = _diff_u8(got, ref)
         assert mx <= 1 and share < 1e-3
@@ -391,7 +391,7 @@ def test_kernel_d_lanczos_window_and_full_frame_on_card(cuda):
     img = _frames(3, 1, 20, 16, 4, cuda)
     a2 = phase.resize_phase(img, 4, "lanczos", lanczos_a=2)
     wrow, wcol, taps, left = phase._weights("lanczos", 20, 16, 4, -0.5, 2,
-                                            cuda, None)
+                                            cuda, None)[:4]
     assert taps == 4 and _diff_u8(a2, phase.resize_phase_reference(
         img, wrow, wcol, 4, taps, left))[0] <= 1
     big = _frames(4, 1, 1080, 1920, 4, cuda)
@@ -544,7 +544,7 @@ def test_kernel_f_matches_plain_on_card(cuda, method, s):
         before = banded.resize_banded.launches
         got = banded.resize_banded(img, s, method, weight_cache=cache)
         assert banded.resize_banded.launches == before + 1
-        b_row, b_colt, left = next(iter(cache.values()))
+        b_row, b_colt, left = next(iter(cache.values()))[:3]
         ref = banded.resize_banded_reference(img, b_row, b_colt, s, left)
         mx, share = _diff_u8(got, ref)
         assert mx <= 1 and share < 1e-3
@@ -819,3 +819,56 @@ def test_stream_keeps_every_frame_and_equals_calls_on_card(cuda):
             for frame, got in zip(seq, kept):
                 assert isinstance(got, np.ndarray) and got.dtype == np.uint8
                 np.testing.assert_array_equal(got, server(frame))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,batch", [
+    (9, 20, 1),      # fewer tiles than persistent blocks
+    (203, 331, 3),   # a batch whose blocks' tiles cross frames
+    (37, 43, 2)])    # odd widths: partial vector stores at every scale
+def test_kernels_d_and_f_on_ragged_tiles_on_card(cuda, h, w, batch):
+    """Kernels D (persistent blocks over 8 x 32 LR tiles, phase groups of
+    4, stores of s*C bytes) and F (persistent runs of 8 x 32 LR tiles,
+    tensor-core products over ranged k8 blocks, 8-byte pixel pairs) at
+    frames ragged for their tiles and stores: C = 1..4, scales 2, 3, 4, u8
+    and f32 input, every batch frame equal to its single frame."""
+    for c in (1, 2, 3, 4):
+        img = _frames(h * c + w, batch, h, w, c, cuda)
+        for s in (2, 3, 4):
+            cache = {}
+            got = phase.resize_phase(img, s, "bicubic", weight_cache=cache)
+            wts = next(iter(cache.values()))[:4]
+            mx, share = _diff_u8(got, phase.resize_phase_reference(
+                img, *wts[:2], s, *wts[2:]))
+            assert mx <= 1 and share < 1e-3
+            planar = phase.resize_phase(img, s, "bicubic", layout="planar")
+            assert torch.equal(phase.interleave_planar(planar, h, w, s, c),
+                               got)
+            assert torch.equal(got[-1], phase.resize_phase(img[-1], s))
+            gf = phase.resize_phase(img.float(), s, "bicubic")
+            assert float((gf - phase.resize_phase_reference(
+                img.float(), *wts[:2], s, *wts[2:])).abs().max()) < 1e-3
+            cache = {}
+            got = banded.resize_banded(img, s, "bicubic", weight_cache=cache)
+            b_row, b_colt, left = next(iter(cache.values()))[:3]
+            mx, share = _diff_u8(got, banded.resize_banded_reference(
+                img, b_row, b_colt, s, left))
+            assert mx <= 1 and share < 1e-3
+            assert torch.equal(got[-1], banded.resize_banded(img[-1], s))
+            gf = banded.resize_banded(img.float(), s, "bicubic")
+            assert float((gf - banded.resize_banded_reference(
+                img.float(), b_row, b_colt, s, left)).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_batch_sharded_equals_single_frame_kernel_d_on_card(cuda):
+    """parallel/batch.resize_batch_sharded runs kernel D once per shard;
+    its frames are byte-equal to kernel D on each frame alone."""
+    from bicubic_interpolation_model_tpu_torch.parallel.batch import (
+        resize_batch_sharded)
+    imgs = _frames(11, 8, 45, 67, 4, cuda)
+    d0 = phase.resize_phase.launches
+    out = resize_batch_sharded(imgs, 4, mesh=_card_mesh(cuda, 4, "data"))
+    assert phase.resize_phase.launches == d0 + 4
+    for i in range(8):
+        assert torch.equal(out[i], phase.resize_phase(imgs[i], 4))

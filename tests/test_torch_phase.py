@@ -156,7 +156,7 @@ def test_weight_cache_holds_one_entry_per_size():
         got = resize_phase(img, 4, "bicubic", weight_cache=cache)
         assert torch.equal(got, resize_phase(img, 4, "bicubic"))
     assert len(cache) == 4
-    wrow, wcol, taps, left = next(iter(cache.values()))
+    wrow, wcol, taps, left = next(iter(cache.values()))[:4]
     assert wrow.shape == (13 * 4, 4) and wcol.shape == (4 * 4, 11)
 
 
@@ -171,3 +171,45 @@ def test_numpy_goes_to_the_card_and_tensors_run_where_they_lie():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             phase.resize_phase(img, 2, "bicubic")
+
+
+@pytest.mark.parametrize("method,lanczos_a", [
+    ("nearest", 3), ("bilinear", 3), ("bicubic", 3), ("lanczos", 3),
+    ("lanczos", 2)])
+@pytest.mark.parametrize("scale", [1, 3, 4, 6])
+def test_kernel_weights_are_the_plan_arrays_restaged(method, lanczos_a,
+                                                     scale):
+    """The kernel's weights hold every slot weight of
+    ``_phase_plan_arrays`` once, at the place a thread reads it (rows
+    [r, phase group, t, phase], columns per 32-column tile [group, m, x,
+    phase]), and zeros in the padding past the image and past phase S."""
+    h, w = 13, 37
+    wrow, wcol, taps, _ = phase._phase_plan_arrays(method, h, w, scale, -0.5,
+                                                   lanczos_a)
+    rows, cols = phase._kernel_weights(wrow, wcol, scale, taps)
+    groups = -(-scale // 4)
+    assert rows.dtype == cols.dtype == np.float32
+    assert rows.shape == (16, groups, taps, 4)
+    assert cols.shape == (2, groups, taps, 32, 4)
+    r, q, t = np.meshgrid(np.arange(h), np.arange(scale), np.arange(taps),
+                          indexing="ij")
+    np.testing.assert_array_equal(rows[r, q // 4, t, q % 4],
+                                  wrow[r, q * taps + t])
+    x, p, m = np.meshgrid(np.arange(w), np.arange(scale), np.arange(taps),
+                          indexing="ij")
+    np.testing.assert_array_equal(cols[x // 32, p // 4, m, x % 32, p % 4],
+                                  wcol[p * taps + m, x])
+    # nothing else: the padding is zero
+    assert np.count_nonzero(rows) == np.count_nonzero(wrow)
+    assert np.count_nonzero(cols) == np.count_nonzero(wcol)
+
+
+def test_kernel_tile_matches_the_source():
+    """The host's restaging and the kernel agree on the tile and the phase
+    group (csrc/resize_phase.cu)."""
+    import pathlib
+    src = (pathlib.Path(phase.__file__).resolve().parents[1] / "csrc"
+           / "resize_phase.cu").read_text()
+    for name, value in (("TILE_R", phase._TILE_R),
+                        ("TILE_X", phase._TILE_X), ("PH", phase._PH)):
+        assert f"constexpr int {name} = {value};" in src
