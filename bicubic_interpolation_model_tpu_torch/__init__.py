@@ -7,11 +7,16 @@ kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
 use). It imports nothing of the JAX package.
 
 Ported so far (learned-SR serving, classical resize serving, adaptive
-bicubic serving and band/batch-sharded serving):
+bicubic serving, band/batch-sharded serving, the direct-regression and MLP
+baselines, evaluation and image I/O):
 
 core        interpolation kernels and axis plans (NumPy, float64, host)
 train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
-models      WeightPredictor, PixelShuffleUpsample, learned SR inference
+models      WeightPredictor, PixelShuffleUpsample, learned SR inference;
+            the direct-regression models of ``espcn.MODEL_ZOO`` (ESPCN,
+            ESPCNResidual, ESRGANLite, SRResNetTPU: cuDNN convs, no TPU
+            kernel on their path) and ``super_resolve_direct``; the MLP
+            weight predictors (``mlp_predictor``); the TFJS importer
 ops         offsets / GT weights / apply-weights, the fused packed tail
             (CUDA kernel A) and the tail on a precomputed merged map (CUDA
             kernel G), the planar→RGBA32 interleave (CUDA kernel B);
@@ -22,13 +27,17 @@ ops         offsets / GT weights / apply-weights, the fused packed tail
             ``impl="pallas"`` (CUDA kernel F, ``ops/banded``); adaptive
             bicubic (``ops/adaptive``: the plain graph and the dispatch;
             CUDA kernel E, ``ops/adaptive_fused``); antialiased downsample
-evaluation  checkpoint loading by ``meta.json``
-serving     ModelUpscaler, Upscaler
+evaluation  checkpoint loading by ``meta.json``, weight-map validation and
+            analysis, PSNR/SSIM/MSE, ``metrics_report.csv``
+data        the header-prefixed float32 tensor files (``binfmt``)
+utils       image I/O (native codec or PIL), workspace configuration
+serving     ModelUpscaler (WeightPredictor and direct checkpoints), Upscaler
 parallel    a named grid of devices (``Mesh``, which may repeat a device),
             band-sharded learned / classical / adaptive SR of one frame
             (kernels G, C, E per band) and batch-sharded resize (kernel D
             per shard) in one process; multi-host process-group setup
-runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``
+runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``,
+            g++ build + ctypes binding of the root ``csrc/`` image/tensor IO
 
 Entry points take ``device=`` and default to ``"cuda"``; with no card they
 raise unless the caller asks for ``device="cpu"``. Functions that take

@@ -1,1 +1,1 @@
-"""Model loading by checkpoint metadata."""
+"""Evaluation: checkpoint loading and model analysis, metrics, comparison reports."""

@@ -1,21 +1,28 @@
 """Learned-model SR inference (counterpart of
-``bicubic_interpolation_model_tpu/models/inference.py``, WeightPredictor
-branch):
+``bicubic_interpolation_model_tpu/models/inference.py``).
+
+WeightPredictor checkpoints:
 
   offsets → model([img/255, offsets]) → 16-tap apply → round-half-even u8.
 
-WeightPredictor checkpoints take the phase-packed forward
-(:func:`_super_resolve_packed`): every tensor stays at LR resolution with
-the S*S output phases packed into channels, ``conv_off`` collapses to a
-per-phase constant and ``conv_out`` is phase-decomposed. On the card its
-tail (merged map → conv_out → tanh → apply → round → pack) is one CUDA
-kernel (:mod:`..ops.packed_tail`), and RGBA frames can be delivered as
-RGBA32 words (``layout="hwc32"``) through the interleave kernel.
+They take the phase-packed forward (:func:`_super_resolve_packed`): every
+tensor stays at LR resolution with the S*S output phases packed into
+channels, ``conv_off`` collapses to a per-phase constant and ``conv_out``
+is phase-decomposed. On the card its tail (merged map → conv_out → tanh →
+apply → round → pack) is one CUDA kernel (:mod:`..ops.packed_tail`), and
+RGBA frames can be delivered as RGBA32 words (``layout="hwc32"``) through
+the interleave kernel.
+
+Direct-regression checkpoints (ESPCN / ESRGAN / SRResNetTPU,
+:data:`.espcn.MODEL_ZOO`) take :func:`super_resolve_direct`: the conv stack
+on img/255 and round half up, ``floor(y*255 + 0.5)``. No TPU kernel lies on
+that path (the JAX package runs it as XLA convs): here it is cuDNN convs
+and plain torch ops.
 
 Functions here run on the device their params lie on. ``compute_dtype``
-defaults to float32; bfloat16 is accepted for the model stages and held to
-the JAX package's bf16 envelope (<=3 u8 LSB vs f32). Dense convs go to
-cuDNN with TF32 off at float32.
+defaults to float32; bfloat16 is accepted for the model stages (held to the
+JAX package's bf16 envelopes) and float64 runs the same function as a
+reference. Dense convs go to cuDNN with TF32 off at float32.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from ..ops.learned import (_apply_round, _apply_weights_phase, _axis_offsets,
                            _edge_pad_chw, offset_map)
 from ..ops.packed_tail import packed_tail_fused, packed_tail_supported
 from ..ops.planar import pack_rgba32
-from .layers import conv_nhwc
+from .layers import conv_nhwc, tree_map
 from .weight_predictor import LAYERS, forward_params
 
 
@@ -36,12 +43,23 @@ def _tree(params) -> dict:
     return params.get("params", params) if hasattr(params, "get") else params
 
 
+def _first_leaf(node) -> torch.Tensor:
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    return node
+
+
 def _device_of(p) -> torch.device:
-    return p["conv_in"]["kernel"].device
+    return _first_leaf(p).device
 
 
 def _default_dtype(compute_dtype) -> torch.dtype:
-    return torch.float32 if compute_dtype is None else compute_dtype
+    """None → float32; a torch dtype or its name ("bfloat16")."""
+    if compute_dtype is None:
+        return torch.float32
+    if isinstance(compute_dtype, str):
+        return getattr(torch, compute_dtype)
+    return compute_dtype
 
 
 def _conv_precision(dtype):
@@ -56,8 +74,8 @@ def _cast_compute(p: dict, x: torch.Tensor, dtype):
     """Cast float params + activations to the compute dtype."""
     if dtype == torch.float32:
         return p, x
-    cast = {name: {k: v.to(dtype) if v.dtype == torch.float32 else v
-                   for k, v in leaves.items()} for name, leaves in p.items()}
+    cast = tree_map(lambda v: v.to(dtype) if v.dtype == torch.float32
+                     else v, p)
     return cast, x.to(dtype)
 
 
@@ -284,6 +302,44 @@ def _is_weight_predictor(model, p) -> bool:
             and all(k in p for k in LAYERS))
 
 
+def _round_half_up(y: torch.Tensor) -> torch.Tensor:
+    """[0, 1] floats → uint8 as the JAX package's direct path rounds them:
+    ``clip(floor(y*255 + 0.5), 0, 255)``, half up (not the learned path's
+    half-even :func:`_apply_round`)."""
+    return torch.floor(y * 255.0 + 0.5).clamp(0, 255).to(torch.uint8)
+
+
+@torch.no_grad()
+def _apply_direct(model, params, x, dtype):
+    """The direct model on [B, H, W, C] floats in ``dtype``; the result in
+    float32 (float64 for a float64 reference)."""
+    p, x = _cast_compute(_tree(params), x, dtype)
+    with _conv_precision(dtype):
+        y = model.apply(p, x)
+    return y.to(torch.promote_types(dtype, torch.float32))
+
+
+def _direct_frames(model, params, lrs, compute_dtype):
+    dt = _default_dtype(compute_dtype)
+    x = lrs.to(torch.promote_types(dt, torch.float32)) / 255.0
+    return _round_half_up(_apply_direct(model, params, x, dt))
+
+
+@torch.no_grad()
+def super_resolve_direct(model, params, lr_u8, *, compute_dtype=None):
+    """Direct-regression SR (ESPCN / ESRGAN / SRResNetTPU families): uint8
+    [H, W, C] in (C = the model's input channels, RGB for the committed
+    checkpoints), uint8 [H*S, W*S, C] out, on the device the params lie
+    on (a numpy frame is moved there).
+
+    ``compute_dtype`` defaults to float32, as in the JAX package, whose
+    bf16 gate these conv stacks miss; ``torch.bfloat16`` (or
+    "bfloat16") opts in, ``torch.float64`` runs the same function as a
+    reference."""
+    lr = _as_frames(lr_u8, _device_of(_tree(params)))
+    return _direct_frames(model, params, lr[None], compute_dtype)[0]
+
+
 @torch.no_grad()
 def super_resolve(model, params, lr_u8, scale: int = 4,
                   convention: str = "inference", *, exact: bool = False,
@@ -291,7 +347,9 @@ def super_resolve(model, params, lr_u8, scale: int = 4,
                   layout: str = "hwc", tail: str = "auto",
                   tail_operands=None):
     """Full learned SR: uint8 LR [H, W, C] in, uint8 SR out, on the device
-    the params lie on (a numpy frame is moved there).
+    the params lie on (a numpy frame is moved there). A direct-regression
+    model goes to :func:`super_resolve_direct` (``scale``, ``convention``,
+    ``exact`` and ``tail`` do not apply to it).
 
     WeightPredictor checkpoints take the phase-packed path; ``exact=True``
     forces the canonical f32 predict+apply program. ``layout="hwc32"``
@@ -307,16 +365,19 @@ def super_resolve(model, params, lr_u8, scale: int = 4,
     if layout == "hwc32" and lr.shape[-1] != 4:
         raise ValueError("layout='hwc32' packs 4 channel bytes per word; "
                          f"got C={lr.shape[-1]} (RGBA frames only)")
+    if type(model).__name__ != "WeightPredictor":
+        if layout != "hwc":
+            raise ValueError(f"{type(model).__name__} returns RGB frames; "
+                             "layout='hwc32' is for RGBA WeightPredictor "
+                             "output")
+        return super_resolve_direct(model, params, lr,
+                                    compute_dtype=compute_dtype)
     if not exact and _is_weight_predictor(model, p):
         return _super_resolve_packed(params, lr, int(scale), convention,
                                      dtype=_default_dtype(compute_dtype),
                                      tail=tail, opaque_alpha=opaque_alpha,
                                      layout=layout,
                                      tail_operands=tail_operands)
-    if type(model).__name__ != "WeightPredictor":
-        raise NotImplementedError(
-            f"{type(model).__name__}: direct-regression models are not "
-            "ported yet")
     out = _super_resolve_fused(model, params, lr, int(scale), convention)
     # RGBA32 words as a byte view of the same device memory: no host trip
     return pack_rgba32(out) if layout == "hwc32" else out
@@ -329,16 +390,16 @@ def super_resolve_batch(model, params, lrs_u8, scale: int = 4,
                         opaque_alpha: bool = False, tail: str = "auto",
                         tail_operands=None):
     """[B, H, W, C] same-size frames in one launch: the batch is the fused
-    tail kernel's leading grid dimension. Same numerics contract as
-    :func:`super_resolve`; returns uint8 [B, H_sr, W_sr, C]."""
+    tail kernel's leading grid dimension, or the convs' batch for a
+    direct-regression model. Same numerics contracts as
+    :func:`super_resolve` / :func:`super_resolve_direct`; returns uint8
+    [B, H_sr, W_sr, C]."""
     p = _tree(params)
     lrs = _as_frames(lrs_u8, _device_of(p))
     if lrs.dim() != 4:
         raise ValueError("expected [B, H, W, C] uint8")
     if type(model).__name__ != "WeightPredictor":
-        raise NotImplementedError(
-            f"{type(model).__name__}: direct-regression models are not "
-            "ported yet")
+        return _direct_frames(model, params, lrs, compute_dtype)
     if not exact and _is_weight_predictor(model, p):
         return _super_resolve_packed(params, lrs, int(scale), convention,
                                      dtype=_default_dtype(compute_dtype),

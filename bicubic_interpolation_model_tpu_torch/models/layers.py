@@ -1,11 +1,18 @@
 """Shared model layers, NHWC at their public functions with flax's
-parameter layouts (conv kernels HWIO), so checkpoints of the JAX package
-load without transposition."""
+parameter layouts (conv kernels HWIO, dense kernels [in, out]), so
+checkpoints of the JAX package load without transposition.
+
+:class:`TreeModule` names its children as flax names its submodules
+(``Conv_0``, ``RRDB_1/DenseBlock_2/Conv_3``, ``dense1``): its
+:meth:`~TreeModule.tree` is the flax parameter tree of the module's own
+parameters, and its forward is :meth:`~TreeModule.apply` on that tree, so a
+cast copy of the tree (bfloat16, float64) runs the same function."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -21,6 +28,35 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+def pixel_shuffle(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """[B, H, W, C*s*s] -> [B, H*s, W*s, C] (depth-to-space) in the JAX
+    package's NHWC order: input channel ``(a*s + b)*C + c`` goes to output
+    pixel ``(s*Y + a, s*X + b)``, channel ``c``. This is not
+    ``torch.nn.functional.pixel_shuffle``, whose channel order is
+    ``c*s*s + a*s + b``."""
+    b, h, w, c = x.shape
+    s = scale
+    cout = c // (s * s)
+    y = x.reshape(b, h, w, s, s, cout)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, cout)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H*s, W*s, C], each pixel repeated s x s."""
+    return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
+
+
+def conv(x: torch.Tensor, leaf: dict) -> torch.Tensor:
+    """:func:`conv_nhwc` with a ``{"kernel", "bias"}`` tree leaf."""
+    return conv_nhwc(x, leaf["kernel"], leaf["bias"])
+
+
+def dense(x: torch.Tensor, leaf: dict) -> torch.Tensor:
+    """``x @ kernel (+ bias)`` with a flax Dense leaf (kernel [in, out])."""
+    y = x @ leaf["kernel"]
+    return y + leaf["bias"] if "bias" in leaf else y
+
+
 def pixel_shuffle_upsample(x: torch.Tensor, kernel: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """Stride-S transposed conv with kernel size S: each input pixel emits
@@ -31,9 +67,11 @@ def pixel_shuffle_upsample(x: torch.Tensor, kernel: torch.Tensor,
     return y.reshape(b, h * s, w * s, o) + bias
 
 
-def _lecun_normal_(t: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
-    # flax's default conv kernel init: truncated normal, variance 1/fan_in
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+def _lecun_normal_(t: torch.Tensor, fan_in: int, generator,
+                   gain: float = 1.0) -> torch.Tensor:
+    # flax's default conv and dense kernel init: truncated normal, variance
+    # gain/fan_in (gain 2 is flax's he_normal)
+    std = math.sqrt(gain / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
                                  generator=generator)
 
@@ -51,6 +89,113 @@ class Conv(nn.Module):
 
     def forward(self, x):
         return conv_nhwc(x, self.kernel, self.bias)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` counterpart: ``kernel`` [in, out], ``bias`` unless
+    ``use_bias=False``. ``init`` "lecun" (flax's default) or "he" (flax's
+    he_normal), both truncated normals."""
+
+    def __init__(self, n_in: int, n_out: int, *, use_bias: bool = True,
+                 init: str = "lecun", generator=None):
+        super().__init__()
+        k = torch.empty((n_in, n_out))
+        _lecun_normal_(k, n_in, generator, 2.0 if init == "he" else 1.0)
+        self.kernel = nn.Parameter(k)
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x):
+        return dense(x, _leaves(self))
+
+
+def _leaves(layer: nn.Module) -> dict:
+    return dict(layer.named_parameters(recurse=False))
+
+
+def tree_map(fn, node):
+    """``fn`` on every leaf of a nested dict, the structure kept."""
+    if isinstance(node, dict):
+        return {k: tree_map(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def tree_from_jax(tree: dict, *, device="cuda") -> dict:
+    """A flax parameter tree of numpy (or jax/torch) arrays → the same tree
+    ``{"params": ...}`` of float32 tensors on ``device``."""
+    from ..runtime.device import resolve_device
+
+    dev = resolve_device(device)
+
+    def convert(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().to(dev, torch.float32)
+        return torch.as_tensor(np.array(leaf, dtype=np.float32), device=dev)
+    return {"params": tree_map(convert, tree.get("params", tree))}
+
+
+def numbered(p: dict, prefix: str) -> list[str]:
+    """The names ``<prefix>_<i>`` of a flax tree level in the order of
+    ``i`` (flax numbers submodules by creation; a string sort would put
+    ``Conv_10`` before ``Conv_2``). Raises unless ``i`` runs 0..n-1."""
+    idx = sorted(int(k[len(prefix) + 1:]) for k in p
+                 if k.startswith(prefix + "_")
+                 and k[len(prefix) + 1:].isdigit())
+    if idx != list(range(len(idx))):
+        raise ValueError(f"{prefix}_<i> names are not numbered 0..n-1: "
+                         f"{idx}")
+    return [f"{prefix}_{i}" for i in idx]
+
+
+def empty_module(make, device) -> nn.Module:
+    """``make()`` built without initialising its parameters (on the meta
+    device), then given uninitialised storage on ``device``: for a
+    checkpoint that fills every leaf (``load_tree`` checks that it does)."""
+    with torch.device("meta"):
+        module = make()
+    return module.to_empty(device=device)
+
+
+class TreeModule(nn.Module):
+    """A module whose children carry flax's submodule names; leaf layers
+    (:class:`Conv`, :class:`Dense`, :class:`PixelShuffleUpsample`) hold
+    ``kernel`` and ``bias``. Subclasses define ``apply(params, x)`` on the
+    tree."""
+
+    def tree(self) -> dict:
+        """The flax-style ``{"params": ...}`` tree of this module's own
+        parameters (no copies)."""
+        def sub(m):
+            leaf = (Conv, Dense, PixelShuffleUpsample)
+            return {name: _leaves(c) if isinstance(c, leaf) else sub(c)
+                    for name, c in m.named_children()}
+        return {"params": sub(self)}
+
+    @torch.no_grad()
+    def load_tree(self, tree: dict) -> "TreeModule":
+        """Copy a flax-style tree (numpy or torch leaves) into the module;
+        raises on a missing, extra or misshapen leaf."""
+        dev = next(self.parameters()).device
+        src = tree_from_jax(tree, device=dev)["params"]
+
+        def copy(dst, s, path):
+            if set(dst) != set(s):
+                raise ValueError(f"{path or 'tree'}: checkpoint has "
+                                 f"{sorted(s)}, model {sorted(dst)}")
+            for k, v in dst.items():
+                if isinstance(v, dict):
+                    copy(v, s[k], f"{path}{k}/")
+                elif v.shape != s[k].shape:
+                    raise ValueError(f"{path}{k}: checkpoint shape "
+                                     f"{tuple(s[k].shape)}, model "
+                                     f"{tuple(v.shape)}")
+                else:
+                    v.copy_(s[k])
+        copy(self.tree()["params"], src, "")
+        return self
+
+    def forward(self, x):
+        return self.apply(self.tree(), x)
 
 
 class PixelShuffleUpsample(nn.Module):

@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..runtime.device import resolve_device
-from .layers import Conv, PixelShuffleUpsample, conv_nhwc, pixel_shuffle_upsample
+from .layers import (Conv, PixelShuffleUpsample, TreeModule, conv_nhwc,
+                     pixel_shuffle_upsample)
 
 LAYERS = ("conv_in", "conv_res", "upsample", "conv_att", "conv_off",
           "conv_out")
@@ -38,7 +38,10 @@ def forward_params(p: dict, img: torch.Tensor,
     return torch.tanh(conv_nhwc(merged, **p["conv_out"]))
 
 
-class WeightPredictor(nn.Module):
+class WeightPredictor(TreeModule):
+    """Its :meth:`tree` is ``{"params": {layer: {kernel, bias}}}`` of
+    the module's own parameters (no copies)."""
+
     def __init__(self, features: int = 32, n_weights: int = 16,
                  scale: int = 4, *, generator=None):
         super().__init__()
@@ -52,26 +55,12 @@ class WeightPredictor(nn.Module):
         self.conv_off = Conv(1, 1, 2, n_weights, **g)
         self.conv_out = Conv(3, 3, 2 * n_weights, n_weights, **g)
 
-    def tree(self) -> dict:
-        """The flax-style ``{"params": {layer: {kernel, bias}}}`` tree of
-        this module's own parameters (no copies)."""
-        return {"params": {name: {"kernel": getattr(self, name).kernel,
-                                  "bias": getattr(self, name).bias}
-                           for name in LAYERS}}
-
     @torch.no_grad()
     def load_tree(self, tree: dict) -> "WeightPredictor":
-        """Copy a flax-style tree (numpy or torch leaves) into the module."""
-        src = params_from_jax(tree, device=self.conv_in.kernel.device)
-        for name, leaves in src["params"].items():
-            for k, v in leaves.items():
-                dst = getattr(getattr(self, name), k)
-                if dst.shape != v.shape:
-                    raise ValueError(f"{name}.{k}: checkpoint shape "
-                                     f"{tuple(v.shape)}, model "
-                                     f"{tuple(dst.shape)}")
-                dst.copy_(v)
-        return self
+        """Copy a flax-style tree (numpy or torch leaves) into the module;
+        leaves other than the six layers' are ignored."""
+        return super().load_tree(params_from_jax(
+            tree, device=self.conv_in.kernel.device))
 
     def forward(self, img, offsets):
         return forward_params(self.tree()["params"], img, offsets)

@@ -1,1 +1,1 @@
-"""Device resolution and the CUDA kernel build."""
+"""Device resolution, the CUDA kernel build and the native image/tensor IO binding."""

@@ -6,7 +6,8 @@
   scales, batch-aware (the batch rides the kernels' ``blockIdx.z``), with a
   :meth:`~Upscaler.stream` that keeps one dispatch in flight while the
   previous frame is fetched.
-- :class:`ModelUpscaler` — the learned pipeline behind the same interface.
+- :class:`ModelUpscaler` — the learned pipelines behind the same interface:
+  WeightPredictor checkpoints and the direct-regression models.
 
 Both return host uint8 HWC arrays; ``fetch=False`` keeps the device tensor
 for chaining into other on-device work.
@@ -237,9 +238,12 @@ class Upscaler:
 
 @dataclasses.dataclass
 class ModelUpscaler:
-    """Learned SR behind the serving interface, on a native WeightPredictor
-    checkpoint directory. ``device`` defaults to the card; without one it
-    raises unless given ``device="cpu"``."""
+    """Learned SR behind the serving interface, on a checkpoint directory
+    that ``evaluation.model_analysis._load_model_any`` loads: a native or
+    TFJS WeightPredictor, or a direct-regression model of
+    ``models.espcn.MODEL_ZOO`` (ESPCN, ESRGAN, SRResNetTPU), which takes
+    the frame's RGB channels and returns RGB. ``device`` defaults to the
+    card; without one it raises unless given ``device="cpu"``."""
 
     model_dir: str
     scale: int = 4
@@ -259,11 +263,16 @@ class ModelUpscaler:
         self._device = resolve_device(self.device)
         self.model, self.params = _load_model_any(self.model_dir,
                                                   device=self._device)
-        # the fused tail's operands, built once per checkpoint
-        from .models.inference import _tail_operands, _tree
-        with torch.no_grad():
-            self._tail_operands = _tail_operands(
-                _tree(self.params), self.scale, self.convention)
+        # direct pixel-regression checkpoints take super_resolve_direct;
+        # weight predictors the phase-packed super_resolve
+        self._direct = type(self.model).__name__ != "WeightPredictor"
+        self._tail_operands = None
+        if not self._direct:
+            # the fused tail's operands, built once per checkpoint
+            from .models.inference import _tail_operands, _tree
+            with torch.no_grad():
+                self._tail_operands = _tail_operands(
+                    _tree(self.params), self.scale, self.convention)
 
     def _kw(self):
         return dict(scale=self.scale, convention=self.convention,
@@ -274,13 +283,18 @@ class ModelUpscaler:
         """One [H, W, C] uint8 frame (numpy or tensor).
 
         ``fetch=True`` returns a host HWC uint8 array. ``fetch=False``
-        returns the device tensor: for RGBA frames on the card that is the
-        RGBA32 word array, uint32 [H*S, W*S], whose little-endian bytes are
-        the HWC frame (pass it to :func:`_fetch` or view the bytes
-        yourself); otherwise uint8 [H*S, W*S, C].
+        returns the device tensor: for a WeightPredictor's RGBA frames on
+        the card that is the RGBA32 word array, uint32 [H*S, W*S], whose
+        little-endian bytes are the HWC frame (pass it to :func:`_fetch` or
+        view the bytes yourself); otherwise uint8 [H*S, W*S, C], with C = 3
+        for a direct model.
         """
-        from .models.inference import super_resolve
         lr = torch.as_tensor(lr_u8).to(self._device)
+        if self._direct:
+            from .models.inference import super_resolve_direct
+            out = super_resolve_direct(self.model, self.params, lr[..., :3])
+            return _fetch(out) if fetch else out
+        from .models.inference import super_resolve
         # RGBA frames on the card go out as RGBA32 words through the
         # interleave kernel; the channel count comes from the shape
         use32 = self._device.type == "cuda" and lr.shape[-1] == 4
@@ -290,9 +304,12 @@ class ModelUpscaler:
 
     def batch(self, lrs_u8, fetch: bool = True):
         """[B, H, W, C] same-size frames in one launch (the fused tail
-        kernel's leading grid dimension); uint8 [B, H*S, W*S, C]."""
+        kernel's leading grid dimension, or the convs' batch); uint8
+        [B, H*S, W*S, C], C = 3 for a direct model."""
         from .models.inference import super_resolve_batch
         lrs = torch.as_tensor(lrs_u8).to(self._device)
+        if self._direct:
+            lrs = lrs[..., :3]
         out = super_resolve_batch(self.model, self.params, lrs, **self._kw())
         return _fetch(out) if fetch else out
 
@@ -304,7 +321,9 @@ class ModelUpscaler:
         """Per-frame host results with dispatch/fetch overlap.
         ``microbatch`` groups consecutive same-shape frames below 256² into
         one launch (~0.25 MPix per dispatch); an int forces that group
-        size, None disables grouping."""
+        size, None disables grouping. For a direct model a grouped frame
+        may differ from a single one by ±1 u8 (cuDNN may pick another
+        algorithm at another batch size)."""
         def group_size(img):
             if microbatch is None:
                 return 1

@@ -13,7 +13,11 @@ RGBA -> 4x) and through the band- and batch-sharded paths of ``parallel/``
 on meshes of 2 and 4 bands on the one card (learned at 348x510, classical
 and adaptive at 1080x1920, a batch of 8 frames), checks launch counts and
 outputs, and times the kernels, their plain versions and the served
-frames.
+frames. Then it serves the five direct-regression checkpoints
+(``model/espcn_*``, ``esrgan_*``, ``srresnet_tpu``: cuDNN convs, no TPU
+kernel on that path) through ``ModelUpscaler`` at 348x510 RGBA -> 1392x2040
+RGB, holds each against its own float64 run on a crop, and scores thirteen
+rebuilds of a synthetic frame with the port's ``evaluation.metrics``.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -621,11 +625,13 @@ def check_kernel_d(phase, dev, emit_fn):
     return worst
 
 
-def profile_served_frames(up, frame, n, named):
+def profile_served_frames(up, frame, n, named, ops=None):
     """Device time by kernel name and the device's busy share over ``n``
     served frames (the upscaler's ``__call__`` with the host fetch), from
     one torch.profiler trace. ``named``: result key -> substring of the
-    trace's kernel names whose time it sums."""
+    trace's kernel names whose time it sums; ``ops``: result key -> name of
+    a CPU op (``aten::cudnn_convolution``) whose launched kernels' device
+    time it sums."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -653,12 +659,50 @@ def profile_served_frames(up, frame, n, named):
     span = window.end - window.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     total = lambda key: sum(v for k, v in by_name.items() if key in k)
+    # a CPU op's device time: the kernels it launched, linked by the trace
+    op_time = lambda op: sum(
+        e.device_time_total if hasattr(e, "device_time_total")
+        else e.cuda_time_total for e in events if e.name == op)
+    by_op = {key: op_time(op) / 1e3 / n for key, op in (ops or {}).items()}
     return {"frames": n, "host_ms_per_frame": span / 1e3 / n,
             "device_busy_ms_per_frame": busy / 1e3 / n,
             "device_idle_share": 1.0 - busy / span,
             **{key: total(sub) / 1e3 / n for key, sub in named.items()},
+            **by_op,
             "device_ms_per_frame_by_kernel": {
                 k[:80]: v / 1e3 / n for k, v in top}}
+
+
+DIRECT = ("espcn_medium", "espcn_thick", "srresnet_tpu", "esrgan_lite",
+          "esrgan_plus")
+
+
+def direct_flops(model, h, w):
+    """FLOPs (2 per multiply-add) of a direct model's convs on one [h, w]
+    RGB frame, counted from the layer shapes: the model runs on meta
+    tensors (shapes only) under PyTorch's FLOP counter."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from bicubic_interpolation_model_tpu_torch.models.layers import tree_map
+    meta = tree_map(lambda t: torch.empty(t.shape, device="meta"),
+                    model.tree())
+    with FlopCounterMode(display=False) as counter:
+        model.apply(meta, torch.empty((1, h, w, 3), device="meta"))
+    return counter.get_total_flops()
+
+
+def synthetic_hr(rng, h, w):
+    """An RGBA u8 HR frame made from a seed: smooth gradients, hard edges
+    (a checkerboard and a disc) and high-frequency texture."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    r = 128 + 90 * np.sin(x / 97.0) * np.cos(y / 131.0)
+    g = 255 * x / w * 0.6 + 60 * (((x // 64) + (y // 48)) % 2)
+    disc = (x - 0.6 * w) ** 2 + (y - 0.4 * h) ** 2 < (0.25 * h) ** 2
+    b = np.where(disc, 210.0, 50.0) + 30 * np.sin(0.9 * x + 0.35 * y) \
+        * np.sin(0.7 * y)
+    rgb = np.stack([r, g, b], -1) + rng.normal(0, 6, (h, w, 3))
+    out = np.full((h, w, 4), 255, np.uint8)
+    out[..., :3] = np.clip(np.floor(rgb + 0.5), 0, 255)
+    return out
 
 
 def main() -> int:
@@ -1471,6 +1515,156 @@ def main() -> int:
               frames[0], 5, {
                   "packed_tail_ms_per_frame": "packed_tail_map_kernel",
                   "memcpy_dtoh_ms_per_frame": "Memcpy DtoH"})})
+
+    # 6e. the direct-regression checkpoints through ModelUpscaler at the
+    # learned path's 348x510 RGBA frame -> 1392x2040 RGB, f32 (cuDNN convs
+    # with TF32 off; no TPU kernel lies on this path, and none of the seven
+    # kernels may launch)
+    from bicubic_interpolation_model_tpu_torch.models.inference import (
+        super_resolve_direct)
+    wrappers = {"packed_tail_fused": pt.packed_tail_fused,
+                "packed_tail": pt.packed_tail,
+                "interleave_planar_u32": ilv.interleave_planar_u32,
+                "resize_mxu": mxu.resize_mxu,
+                "resize_phase": phase.resize_phase,
+                "adaptive_resize_fused": adf.adaptive_resize_fused,
+                "resize_banded": banded.resize_banded}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    torch.cuda.empty_cache()
+    crops = [f[:48, :64] for f in frames[:4]]
+    direct_ups = {}
+    for name in DIRECT:
+        up_d = direct_ups[name] = ModelUpscaler(str(ROOT / "model" / name))
+        heavy = name.startswith("esrgan")
+        zero_counts()
+        out = up_d(frames[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        up_d(lr_dev, fetch=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches_dir = read_counts()
+        if out.shape != (FRAME[0] * 4, FRAME[1] * 4, 3) \
+                or out.dtype != np.uint8 or float(out.std()) == 0:
+            raise AssertionError(f"{name}: bad output {out.shape} "
+                                 f"{out.dtype}")
+        if any(launches_dir.values()):
+            raise AssertionError(f"{name} launched a resize kernel: "
+                                 f"{launches_dir}")
+        runs = 3 if heavy else 5
+        call_dev_ms = time_ms(lambda: up_d(lr_dev, fetch=False), runs=runs,
+                              warmup=1)
+        call_fetch_ms = time_ms(lambda: up_d(frames[0]), runs=runs, warmup=1)
+        flops = direct_flops(up_d.model, *FRAME)
+        n_params = sum(t.numel() for t in up_d.model.parameters())
+        # 3 u8 in and 16 x 3 out per LR pixel, the f32 params read once
+        d_bytes = FRAME[0] * FRAME[1] * (3 + 48) + n_params * 4
+        d_bound, d_by = max((flops / F32_FLOP_PER_S * 1e3, "operations"),
+                            (d_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        prof = profile_served_frames(up_d, frames[0], 2, {}, ops={
+            "cudnn_convolution_ms_per_frame": "aten::cudnn_convolution"})
+        # float64 on the card: the same module, params and input cast
+        f32 = [up_d(c) for c in crops]
+        worst = (0, 0.0)
+        for c, o in zip(crops, f32):
+            ref = super_resolve_direct(
+                up_d.model, up_d.params, torch.from_numpy(
+                    np.ascontiguousarray(c[..., :3])).to(dev),
+                compute_dtype=torch.float64)
+            worst = max(worst, diff_u8(torch.from_numpy(o).to(dev), ref))
+        batch2 = up_d.batch(np.stack(crops[:2]))
+        batch_max = max(diff_u8(torch.from_numpy(b), torch.from_numpy(o))[0]
+                        for b, o in zip(batch2, f32))
+        streamed = list(up_d.stream(iter(crops)))
+        stream_max = max(diff_u8(torch.from_numpy(a), torch.from_numpy(o))[0]
+                         for a, o in zip(streamed, f32))
+        res = {"phase": "direct_path", "card": name_power, "model": name,
+               "frame": [*FRAME, 4], "out": list(out.shape),
+               "launches": launches_dir,
+               "call_device_ms": call_dev_ms, "call_fetch_ms": call_fetch_ms,
+               "flops": flops, "mflop_per_lr_px": flops / FRAME[0] / FRAME[1]
+               / 1e6, "bound_ms": d_bound, "bound_by": d_by,
+               "share_of_f32_peak": d_bound / call_dev_ms if d_by ==
+               "operations" else None,
+               "peak_device_mb": peak / 2 ** 20,
+               "cudnn_conv_share_of_device_busy":
+                   prof["cudnn_convolution_ms_per_frame"]
+                   / prof["device_busy_ms_per_frame"],
+               "profile": prof,
+               "vs_float64_crop": {"crop": [48, 64], "max": worst[0],
+                                   "share": worst[1]},
+               "batch_of_2_vs_calls_max": batch_max,
+               "stream_in_order_vs_calls_max": stream_max,
+               "stream_frames": len(streamed)}
+        if name == "esrgan_plus":
+            rgb_dev = lr_dev[..., :3].contiguous()
+            bf = super_resolve_direct(up_d.model, up_d.params, rgb_dev,
+                                      compute_dtype=torch.bfloat16)
+            res["bf16"] = {
+                "call_device_ms": time_ms(lambda: super_resolve_direct(
+                    up_d.model, up_d.params, rgb_dev,
+                    compute_dtype=torch.bfloat16), runs=3, warmup=1),
+                "vs_f32": dict(zip(("max", "share"), diff_u8(
+                    bf, up_d(lr_dev, fetch=False))))}
+        emit(res)
+        if worst[0] > 1 or worst[1] >= 1e-3 or batch_max > 1 \
+                or stream_max > 1 or len(streamed) != len(crops):
+            raise AssertionError(f"{name}: f32 vs float64 {worst}, batch "
+                                 f"{batch_max}, stream {stream_max} "
+                                 f"({len(streamed)} frames)")
+        torch.cuda.empty_cache()
+
+    # 6f. quality table: a synthetic 1392x2040 RGBA frame, downsampled 4x by
+    # the port (lanczos3), rebuilt by thirteen methods and scored by the
+    # port's metrics. The numbers describe this synthetic content only.
+    from bicubic_interpolation_model_tpu_torch.evaluation.metrics import (
+        compare_images)
+    from bicubic_interpolation_model_tpu_torch.models.mlp_predictor import (
+        load_mlp, super_resolve_mlp)
+    from bicubic_interpolation_model_tpu_torch.ops.downsample import (
+        downsample)
+    hr = synthetic_hr(np.random.default_rng(30), FRAME[0] * 4, FRAME[1] * 4)
+    lr = downsample(hr, 4.0, "lanczos3", device=dev).cpu().numpy()
+    mlps = {n: load_mlp(ROOT / "model" / n, device=dev)
+            for n in ("patch-mlp", "pixel-mlp")}
+    zero_counts()
+    rebuilt = {m: Upscaler(scale=4, method=m)(lr) for m in METHODS}
+    rebuilt["adaptive"] = Upscaler(scale=4, method="adaptive")(lr)
+    rebuilt["wp-1e-3-120"] = up(lr)
+    for name in DIRECT:
+        rebuilt[name] = direct_ups[name](lr)
+    for name, (m, p, inc) in mlps.items():
+        rebuilt[name] = super_resolve_mlp(m, p, lr, 4,
+                                          include_offsets=inc).cpu().numpy()
+    torch.cuda.synchronize()
+    launches_q = read_counts()
+    table = {}
+    for method, img in rebuilt.items():
+        if img.shape[:2] != hr.shape[:2]:
+            raise AssertionError(f"quality_table {method}: {img.shape}")
+        m = compare_images(hr, img)
+        table[method] = {"psnr": m.psnr, "ssim": m.ssim, "mse": m.mse}
+    emit({"phase": "quality_table", "card": name_power,
+          "content": "synthetic (seeded gradients, edges, texture); the "
+                     "numbers describe this frame, not image quality",
+          "hr": list(hr.shape), "lr": list(lr.shape),
+          "downsample": "lanczos3", "launches": launches_q,
+          "methods": table})
+    if len(table) != 13 or launches_q != {
+            **{k: 0 for k in wrappers}, "resize_mxu": 4,
+            "adaptive_resize_fused": 1, "packed_tail_fused": 1,
+            "interleave_planar_u32": 1} or not all(
+            15.0 < v["psnr"] < 100.0 for v in table.values()):
+        raise AssertionError(f"quality_table: {launches_q} {table}")
+    del rebuilt, direct_ups, mlps
+    torch.cuda.empty_cache()
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [

@@ -26,7 +26,10 @@ written without contraction in the plain version's order of summation).
 the card: classical, adaptive and batch bands byte-equal to the
 single-frame kernels (each band runs them on the same weights), learned
 bands ≤1 LSB from the sharded graph tail and ≤2 from the single-frame
-``super_resolve`` (kernel A)."""
+``super_resolve`` (kernel A). Direct-regression checkpoints served by
+``ModelUpscaler`` on the card (cuDNN convs, TF32 off): ≤1 u8 from the same
+model run in float64 on the card with a share < 1e-3, ``batch`` within ±1
+of per-frame calls."""
 
 import pathlib
 import subprocess
@@ -872,3 +875,27 @@ def test_batch_sharded_equals_single_frame_kernel_d_on_card(cuda):
     assert phase.resize_phase.launches == d0 + 4
     for i in range(8):
         assert torch.equal(out[i], phase.resize_phase(imgs[i], 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["espcn_medium", "esrgan_lite"])
+def test_direct_model_upscaler_matches_float64_on_card(cuda, name):
+    """A direct model served on the card against the same module with its
+    params and input in float64 on the card."""
+    from bicubic_interpolation_model_tpu_torch.models.inference import (
+        super_resolve_direct)
+    from bicubic_interpolation_model_tpu_torch.serving import ModelUpscaler
+    up = ModelUpscaler(str(ROOT / "model" / name))
+    frames = _frames(40, 2, 24, 36, 4).numpy()
+    got = [torch.from_numpy(up(f)).to(cuda) for f in frames]
+    for f, g in zip(frames, got):
+        assert g.shape == (96, 144, 3)
+        ref = super_resolve_direct(up.model, up.params,
+                                   torch.from_numpy(f[..., :3]).to(cuda),
+                                   compute_dtype=torch.float64)
+        mx, share = _diff_u8(g, ref)
+        assert mx <= 1 and share < 1e-3, (mx, share)
+        assert float(g.float().std()) > 0
+    batch = up.batch(frames, fetch=False)
+    for b, g in zip(batch, got):
+        assert _diff_u8(b, g)[0] <= 1

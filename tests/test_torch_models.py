@@ -110,9 +110,20 @@ def test_load_tree_rejects_wrong_shapes():
         WeightPredictor().load_tree(tree)
 
 
-def test_load_model_any_rejects_unported_models():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _load_model_any(MODEL_DIR / "espcn_medium", device="cpu")
+def test_load_model_any_rejects_unported_models(tmp_path):
+    """Since the direct branch is ported, only what no ModelUpscaler
+    serves is refused: the MLP predictors (loaded by
+    models.mlp_predictor.load_mlp) and unknown ``meta["model"]`` names."""
+    for name in ("patch-mlp", "pixel-mlp"):
+        with pytest.raises(ValueError, match="load_mlp"):
+            _load_model_any(MODEL_DIR / name, device="cpu")
+    (tmp_path / "params.msgpack").write_bytes(
+        (MODEL_DIR / "wp-1e-3-120" / "params.msgpack").read_bytes())
+    (tmp_path / "meta.json").write_text('{"model": "NoSuchModel"}')
+    with pytest.raises(ValueError, match="NoSuchModel"):
+        _load_model_any(tmp_path, device="cpu")
+    model, _ = _load_model_any(MODEL_DIR / "espcn_medium", device="cpu")
+    assert type(model).__name__ == "ESPCN"
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
