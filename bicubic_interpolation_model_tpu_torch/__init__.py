@@ -8,10 +8,12 @@ use). It imports nothing of the JAX package.
 
 Ported so far (learned-SR serving, classical resize serving, adaptive
 bicubic serving, band/batch-sharded serving, the direct-regression and MLP
-baselines, evaluation and image I/O):
+baselines, evaluation and image I/O, data generation and training):
 
 core        interpolation kernels and axis plans (NumPy, float64, host)
-train       msgpack checkpoint reader (flax format, no flax/msgpack needed)
+train       msgpack checkpoint reader and writer (flax's bytes, no
+            flax/msgpack needed); the trainers of the weight predictor
+            (patch and image mode), the direct models and the MLPs
 models      WeightPredictor, PixelShuffleUpsample, learned SR inference;
             the direct-regression models of ``espcn.MODEL_ZOO`` (ESPCN,
             ESPCNResidual, ESRGANLite, SRResNetTPU: cuDNN convs, no TPU
@@ -29,13 +31,17 @@ ops         offsets / GT weights / apply-weights, the fused packed tail
             CUDA kernel E, ``ops/adaptive_fused``); antialiased downsample
 evaluation  checkpoint loading by ``meta.json``, weight-map validation and
             analysis, PSNR/SSIM/MSE, ``metrics_report.csv``
-data        the header-prefixed float32 tensor files (``binfmt``)
-utils       image I/O (native codec or PIL), workspace configuration
+data        the header-prefixed float32 tensor files (``binfmt``), DIV2K
+            sample generation (``div2k``), the Y-less loader
+            (``onthefly``), dataset validation
+utils       image I/O (native codec or PIL), workspace configuration,
+            profiling (torch.profiler traces, memory, anomaly mode)
 serving     ModelUpscaler (WeightPredictor and direct checkpoints), Upscaler
 parallel    a named grid of devices (``Mesh``, which may repeat a device),
             band-sharded learned / classical / adaptive SR of one frame
             (kernels G, C, E per band) and batch-sharded resize (kernel D
-            per shard) in one process; multi-host process-group setup
+            per shard) in one process; data x spatial sharded train
+            steps; multi-host process-group setup
 runtime     device resolution, nvcc build + ctypes binding of ``csrc/*.cu``,
             g++ build + ctypes binding of the root ``csrc/`` image/tensor IO
 

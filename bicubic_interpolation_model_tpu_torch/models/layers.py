@@ -82,10 +82,15 @@ class Conv(nn.Module):
     def __init__(self, kh: int, kw: int, n_in: int, n_out: int, *,
                  generator=None):
         super().__init__()
-        k = torch.empty((kh, kw, n_in, n_out))
-        self.kernel = nn.Parameter(_lecun_normal_(k, kh * kw * n_in,
-                                                  generator))
-        self.bias = nn.Parameter(torch.zeros(n_out))
+        self.kernel = nn.Parameter(torch.empty((kh, kw, n_in, n_out)))
+        self.bias = nn.Parameter(torch.empty(n_out))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        kh, kw, n_in, _ = self.kernel.shape
+        _lecun_normal_(self.kernel, kh * kw * n_in, generator)
+        self.bias.zero_()
 
     def forward(self, x):
         return conv_nhwc(x, self.kernel, self.bias)
@@ -99,11 +104,18 @@ class Dense(nn.Module):
     def __init__(self, n_in: int, n_out: int, *, use_bias: bool = True,
                  init: str = "lecun", generator=None):
         super().__init__()
-        k = torch.empty((n_in, n_out))
-        _lecun_normal_(k, n_in, generator, 2.0 if init == "he" else 1.0)
-        self.kernel = nn.Parameter(k)
+        self.gain = 2.0 if init == "he" else 1.0
+        self.kernel = nn.Parameter(torch.empty((n_in, n_out)))
         if use_bias:
-            self.bias = nn.Parameter(torch.zeros(n_out))
+            self.bias = nn.Parameter(torch.empty(n_out))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        _lecun_normal_(self.kernel, self.kernel.shape[0], generator,
+                       self.gain)
+        if hasattr(self, "bias"):
+            self.bias.zero_()
 
     def forward(self, x):
         return dense(x, _leaves(self))
@@ -132,6 +144,25 @@ def tree_from_jax(tree: dict, *, device="cuda") -> dict:
             return leaf.detach().to(dev, torch.float32)
         return torch.as_tensor(np.array(leaf, dtype=np.float32), device=dev)
     return {"params": tree_map(convert, tree.get("params", tree))}
+
+
+def tree_to_numpy(tree: dict) -> dict:
+    """The reverse of :func:`tree_from_jax`: a tree of tensors (any device)
+    → the same tree of float32 numpy arrays, as the JAX package holds
+    parameters on the host."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                    tree)
+
+
+def init_tree_(model: nn.Module, generator=None) -> nn.Module:
+    """Draw every leaf layer's parameters of ``model`` anew, in place, with
+    flax's initialisers (conv and dense kernels lecun- or he-normal, the
+    upsample glorot-uniform, biases zero), on the device the parameters lie
+    on: ``generator`` is a ``torch.Generator`` of that device."""
+    for m in model.modules():
+        if isinstance(m, (Conv, Dense, PixelShuffleUpsample)):
+            m.reset_parameters(generator)
+    return model
 
 
 def numbered(p: dict, prefix: str) -> list[str]:
@@ -205,13 +236,18 @@ class PixelShuffleUpsample(nn.Module):
     def __init__(self, features: int, scale: int, in_feat: int, *,
                  generator=None):
         super().__init__()
-        s = scale
+        self.kernel = nn.Parameter(torch.empty((scale, scale, features,
+                                                in_feat)))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None):
+        s, _, features, in_feat = self.kernel.shape
         fan_in, fan_out = features * s * s, in_feat * s * s
         lim = math.sqrt(6.0 / (fan_in + fan_out))
-        k = torch.empty((s, s, features, in_feat))
-        self.kernel = nn.Parameter(nn.init.uniform_(k, -lim, lim,
-                                                    generator=generator))
-        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.uniform_(self.kernel, -lim, lim, generator=generator)
+        self.bias.zero_()
 
     def forward(self, x):
         return pixel_shuffle_upsample(x, self.kernel, self.bias)

@@ -62,8 +62,13 @@ class WeightPredictor(TreeModule):
         return super().load_tree(params_from_jax(
             tree, device=self.conv_in.kernel.device))
 
+    @staticmethod
+    def apply(params, img, offsets):
+        """The forward on a ``{"params": ...}`` tree (or its inner dict)."""
+        return forward_params(params.get("params", params), img, offsets)
+
     def forward(self, img, offsets):
-        return forward_params(self.tree()["params"], img, offsets)
+        return self.apply(self.tree(), img, offsets)
 
 
 def params_from_jax(tree: dict, *, device="cuda") -> dict:

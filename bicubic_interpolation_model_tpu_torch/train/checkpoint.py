@@ -1,11 +1,12 @@
-"""Checkpoint loading: flax msgpack params + the ``meta.json`` sidecar.
+"""Checkpoints: flax msgpack params + the ``meta.json`` sidecar, read and
+written byte-compatibly with the JAX package.
 
 The JAX package writes ``params.msgpack`` with
 ``flax.serialization.to_bytes``: a msgpack map tree whose array leaves are
 msgpack ext type 1, the payload itself msgpack ``(shape, dtype_name,
 C-order bytes)``. Neither flax nor the ``msgpack`` package is needed here:
 :func:`msgpack_unpack` is a small decoder of the msgpack types those files
-use. Writing checkpoints waits for the training slice.
+use, and :func:`msgpack_pack` the encoder that :func:`save` writes with.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import pathlib
 import struct
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY = 1        # flax's ndarray ext code
 
@@ -117,3 +119,118 @@ def load(ckpt_dir):
     if mp.exists():
         meta = json.loads(mp.read_text())
     return params, meta
+
+
+# ---------------------------------------------------------------------------
+# writing
+# ---------------------------------------------------------------------------
+
+def _head(out: list, n: int, fix_base: int | None, fix_max: int,
+          codes: tuple[int, int, int]) -> None:
+    """A length header in msgpack's smallest form: the fix form when
+    ``fix_base`` is given and ``n <= fix_max``, else the 8/16/32-bit form
+    (``codes``; a 0 entry means the width does not exist for the type)."""
+    if fix_base is not None and n <= fix_max:
+        out.append(struct.pack(">B", fix_base | n))
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"),
+                                (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code and n <= limit:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack object of {n} entries or bytes is too large")
+
+
+def _int(out: list, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out.append(struct.pack(">b" if v < 0 else ">B", v))
+        return
+    forms = ((0xCC, ">B", 0, 0xFF), (0xCD, ">H", 0, 0xFFFF),
+             (0xCE, ">I", 0, 0xFFFFFFFF), (0xCF, ">Q", 0, 2 ** 64 - 1)) \
+        if v >= 0 else ((0xD0, ">b", -2 ** 7, 0), (0xD1, ">h", -2 ** 15, 0),
+                        (0xD2, ">i", -2 ** 31, 0), (0xD3, ">q", -2 ** 63, 0))
+    for code, fmt, lo, hi in forms:
+        if lo <= v <= hi:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, v))
+            return
+    raise ValueError(f"integer {v} does not fit msgpack")
+
+
+def _ext_bytes(out: list, code: int, payload: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        out.append(struct.pack(">B", fixext[len(payload)]))
+    else:
+        _head(out, len(payload), None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code) + payload)
+
+
+def _ndarray_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes are not serialisable")
+    return msgpack_pack((arr.shape, arr.dtype.name, arr.tobytes("C")))
+
+
+def _pack(out: list, v) -> None:
+    if v is None:
+        out.append(b"\xc0")
+    elif isinstance(v, bool):
+        out.append(b"\xc3" if v else b"\xc2")
+    elif isinstance(v, int):
+        _int(out, v)
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        raw = v.encode("utf-8")
+        _head(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out.append(raw)
+    elif isinstance(v, (bytes, bytearray, memoryview)):
+        raw = bytes(v)
+        _head(out, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+        out.append(raw)
+    elif isinstance(v, (list, tuple)):
+        _head(out, len(v), 0x90, 15, (0, 0xDC, 0xDD))
+        for item in v:
+            _pack(out, item)
+    elif isinstance(v, dict):
+        _head(out, len(v), 0x80, 15, (0, 0xDE, 0xDF))
+        for k, item in v.items():
+            _pack(out, k)
+            _pack(out, item)
+    elif isinstance(v, np.ndarray):
+        _ext_bytes(out, _EXT_NDARRAY, _ndarray_payload(v))
+    else:
+        raise TypeError(f"cannot serialise {type(v).__name__} to msgpack")
+
+
+def msgpack_pack(obj) -> bytes:
+    """Encode ``obj`` as msgpack-python's ``packb`` does (``use_bin_type``,
+    the smallest form of every header and integer, floats as float64), with
+    numpy arrays as flax's ext type 1. Maps keep their order."""
+    out: list = []
+    _pack(out, obj)
+    return b"".join(out)
+
+
+def _state_dict(tree):
+    """The tree as ``jax.device_get`` hands it to flax in the JAX package's
+    ``save``: every map's keys sorted as strings (so ``Conv_10`` precedes
+    ``Conv_2``), tensors as numpy arrays of their dtype."""
+    if isinstance(tree, dict):
+        return {str(k): _state_dict(tree[k])
+                for k in sorted(tree, key=str)}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def save(ckpt_dir, params, *, meta: dict | None = None) -> pathlib.Path:
+    """Write ``params.msgpack`` and ``meta.json`` into ``ckpt_dir`` (made if
+    missing), byte-equal to the JAX package's ``train.checkpoint.save`` of
+    the same tree: ``params`` is a flax-style tree of tensors (any device)
+    or numpy arrays; ``meta.json`` is ``json.dumps(meta, indent=2)``."""
+    d = pathlib.Path(ckpt_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "params.msgpack").write_bytes(msgpack_pack(_state_dict(params)))
+    (d / "meta.json").write_text(json.dumps(meta or {}, indent=2))
+    return d

@@ -18,6 +18,12 @@ frames. Then it serves the five direct-regression checkpoints
 kernel on that path) through ``ModelUpscaler`` at 348x510 RGBA -> 1392x2040
 RGB, holds each against its own float64 run on a crop, and scores thirteen
 rebuilds of a synthetic frame with the port's ``evaluation.metrics``.
+Last, the training slice (no TPU kernel lies on it): data generation on a
+synthetic 2040x1356 HR frame against the same call on the CPU, the
+weight predictor's trainer in patch and image mode (its card step against
+the CPU step), the five direct models' and the MLP's trainers, the sharded
+steps on a mesh of the card repeated against the unsharded steps, and the
+trained checkpoint saved, loaded and served through kernels A and B.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -104,22 +110,31 @@ def device_ms(fn, n=20, warmup=3, kernel=None):
     holds is still the time of one launch; a trace with another count than
     ``n`` is reported on stderr. Other device events of ``fn`` (a wrapper's
     own small kernels) are left out. Otherwise it is the summed durations
-    of all device events over ``n``. Raises if the trace holds no device
-    time: a host clock's reading is never printed under a device time's
-    name."""
+    of all device events over ``n``. A trace with no device time is taken
+    again, at most four times, and then it raises: a host clock's reading
+    is never printed under a device time's name."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    durations = [e.time_range.end - e.time_range.start
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (kernel is None or kernel in e.name)]
+    # a trace can come back empty (kernel B's once; kernel C's twice in a
+    # row on one run, and the third held its launches)
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        durations = [e.time_range.end - e.time_range.start
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and (kernel is None or kernel in e.name)]
+        if sum(durations) > 0:
+            break
+        print(f"device_ms: trace {attempt + 1} holds no device time"
+              f"{' of ' + kernel if kernel else ''}", file=sys.stderr,
+              flush=True)
+        time.sleep(1.0)
     if sum(durations) <= 0:
         raise RuntimeError("the profiler's trace holds no device time")
     if kernel is None:
@@ -641,8 +656,10 @@ def profile_served_frames(up, frame, n, named, ops=None):
         torch.cuda.synchronize()
     events = prof.events()
     window = [e for e in events if e.name == "serve"][0].time_range
+    # user annotations (an optimizer's step range) are no device work
     dev = [e for e in events if e.name != "serve"
-           and e.device_type == torch.autograd.DeviceType.CUDA]
+           and e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation]
     if not dev:
         raise RuntimeError("the profiler's trace holds no device time")
     busy, end = 0.0, None
@@ -703,6 +720,421 @@ def synthetic_hr(rng, h, w):
     out = np.full((h, w, 4), 255, np.uint8)
     out[..., :3] = np.clip(np.floor(rgb + 0.5), 0, 255)
     return out
+
+
+DIV2K_HR = (1356, 2040)              # a DIV2K-sized HR frame (rows, cols)
+
+
+def wp_flops(b, h, w):
+    """FLOPs (2 per multiply-add) of one WeightPredictor forward on a
+    [b, h, w] LR batch, counted from the layer shapes on meta tensors."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from bicubic_interpolation_model_tpu_torch.models.weight_predictor \
+        import WeightPredictor
+    meta = WeightPredictor().to_empty(device="meta").tree()
+    with FlopCounterMode(display=False) as counter:
+        WeightPredictor.apply(meta, torch.empty((b, h, w, 4), device="meta"),
+                              torch.empty((b, 4 * h, 4 * w, 2),
+                                          device="meta"))
+    return counter.get_total_flops()
+
+
+def step_bound(fwd_flops, nbytes):
+    """Bound of a train step: 3 x the forward's FLOPs (forward, the
+    backward's two products) over the f32 peak, or its bytes over HBM."""
+    return max((3 * fwd_flops / F32_FLOP_PER_S * 1e3, "operations"),
+               (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+
+
+def tree_diff(a, b):
+    """Max |a - b| over two parameter trees' leaves (any devices)."""
+    from bicubic_interpolation_model_tpu_torch.train.trainer import leaves
+    return max(float((x.detach().cpu() - y.detach().cpu()).abs().max())
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def step_agreement(ps, pu):
+    """Two trees after one step from the same parameters: the gradients
+    each leaf kept (max |g_a - g_b| over the leaf's max |g_b|), the
+    parameters against rtol 2e-5 / atol 2e-6 (worst ratio, elements
+    outside, and the largest |g_b| among those)."""
+    from bicubic_interpolation_model_tpu_torch.train.trainer import leaves
+    g_rel, worst, outside, g_out = 0.0, 0.0, 0, 0.0
+    for a, b in zip(leaves(ps), leaves(pu)):
+        ga, gb = a.grad.detach().double(), b.grad.detach().double()
+        g_rel = max(g_rel, float((ga - gb).abs().max()
+                                 / gb.abs().max().clamp(min=1e-30)))
+        r = (a.detach() - b.detach()).abs() / (2e-6 + 2e-5 * b.detach().abs())
+        worst = max(worst, float(r.max()))
+        bad = r > 1.0
+        outside += int(bad.sum())
+        if bad.any():
+            g_out = max(g_out, float(gb[bad].abs().max()))
+    return {"grads_max_rel_to_leaf_max": g_rel, "params_max_abs":
+            tree_diff(ps, pu), "params_worst_over_tolerance": worst,
+            "params_outside_tolerance": outside,
+            "max_abs_grad_where_outside": g_out,
+            "params": sum(t.numel() for t in leaves(pu))}
+
+
+def train_path(dev, name_power, zero_counts, read_counts):
+    """The training slice on the card: data generation, the weight
+    predictor's trainer in patch and image mode, the five direct models'
+    trainer, the MLP trainer, the sharded steps on a mesh of the card
+    repeated, and a trained checkpoint served through kernels A and B.
+    Each phase prints one line and raises when a check fails."""
+    import shutil
+    from bicubic_interpolation_model_tpu_torch.data import div2k, validate
+    from bicubic_interpolation_model_tpu_torch.models.espcn import MODEL_ZOO
+    from bicubic_interpolation_model_tpu_torch.models.inference import (
+        super_resolve)
+    from bicubic_interpolation_model_tpu_torch.models.layers import (
+        empty_module)
+    from bicubic_interpolation_model_tpu_torch.models.mlp_predictor import (
+        PixelMLP, extract_pixel_features)
+    from bicubic_interpolation_model_tpu_torch.models.srresnet_tpu import (
+        SRResNetTPU)
+    from bicubic_interpolation_model_tpu_torch.models.weight_predictor \
+        import WeightPredictor
+    from bicubic_interpolation_model_tpu_torch.ops.learned import (
+        gt_weight_map)
+    from bicubic_interpolation_model_tpu_torch.parallel import (
+        train_sharding)
+    from bicubic_interpolation_model_tpu_torch.parallel.mesh import Mesh
+    from bicubic_interpolation_model_tpu_torch.serving import ModelUpscaler
+    from bicubic_interpolation_model_tpu_torch.train import checkpoint
+    from bicubic_interpolation_model_tpu_torch.train import direct_trainer
+    from bicubic_interpolation_model_tpu_torch.train import mlp_trainer
+    from bicubic_interpolation_model_tpu_torch.train import trainer as tr
+    from bicubic_interpolation_model_tpu_torch.utils import imageio
+    from bicubic_interpolation_model_tpu_torch.utils.profiling import (
+        device_memory_stats)
+
+    quiet = lambda *_: None
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+
+    # data_path: generate_sample on the card against the same call on the
+    # CPU (the LR is the host's float64 downsample in both; the two CPU
+    # calls run in two threads, after the card's calls are timed alone),
+    # then process_images on two PNGs and validate_dataset
+    from concurrent.futures import ThreadPoolExecutor
+    hr = synthetic_hr(np.random.default_rng(40), *DIV2K_HR)
+    res = {"phase": "data_path", "card": name_power,
+           "hr": list(hr.shape)}
+    card_out = {}
+    for adaptive in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_out[adaptive] = div2k.generate_sample(hr, 4, adaptive=adaptive,
+                                                   device=dev)
+        torch.cuda.synchronize()
+        res["adaptive" if adaptive else "plain"] = {
+            "ms_per_frame": (time.perf_counter() - t0) * 1e3}
+    with ThreadPoolExecutor(2) as pool:
+        cpu_out = dict(zip((False, True), pool.map(
+            lambda a: div2k.generate_sample(hr, 4, adaptive=a,
+                                            device="cpu"), (False, True))))
+    xg = card_out[False][0]
+    for adaptive in (False, True):
+        key = "adaptive" if adaptive else "plain"
+        (xa, og, yg), (xc, oc, yc) = card_out[adaptive], cpu_out[adaptive]
+        if adaptive:
+            maps = lambda: div2k._adaptive_weights(xg, *DIV2K_HR, 4,
+                                                   device=dev)
+        else:
+            maps = lambda: gt_weight_map(*DIV2K_HR, 4.0, device=dev)
+        y_err = float(np.abs(yg - yc).max())
+        res[key].update({"weight_map_device_ms": time_ms(maps, runs=5),
+                         "x_bit_equal": bool(np.array_equal(xa, xc)),
+                         "offsets_bit_equal": bool(np.array_equal(og, oc)),
+                         "y_max_abs_err": y_err, "y_shape": list(yg.shape)})
+        if not (res[key]["x_bit_equal"] and res[key]["offsets_bit_equal"]
+                and y_err <= (1e-5 if adaptive else 1e-6)):
+            raise AssertionError(f"data_path {key}: {res[key]}")
+    del card_out, cpu_out
+    x_lr = xg                                   # [339, 510, 4] / 255
+    src = work / "hr"
+    ch, cw = min(512, hr.shape[0] // 2), min(768, hr.shape[1] // 2)
+    for i, (r0, c0) in enumerate(((0, 0), (hr.shape[0] - ch,
+                                          hr.shape[1] - cw))):
+        imageio.save_png(src / f"{i:04d}.png", hr[r0:r0 + ch, c0:c0 + cw])
+    t0 = time.perf_counter()
+    recs = div2k.process_images(src, work / "ds", device=dev, log=quiet)
+    res["process_images_s"] = time.perf_counter() - t0
+    res["process_images_hr"] = [2, ch, cw, 4]
+    reports = validate.validate_dataset(work / "ds" / "train", log=quiet)
+    res["validate"] = {r.sample_id: r.ok for r in reports}
+    emit(res)
+    if len(recs) != 2 or len(reports) != 2 or not all(reports):
+        raise AssertionError(f"process_images / validate_dataset: "
+                             f"{[r.errors for r in reports]}")
+
+    # train_wp: TrainConfig() defaults on Y-less data (the synthesised
+    # patch targets), 20 steps, then timed on one batch
+    data = {"synthetic": {"X": x_lr}}
+    cfg = tr.TrainConfig()
+    trainer = tr.WeightPredictorTrainer(WeightPredictor(), cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = trainer.fit(data, epochs=20, log=quiet)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in trainer.history]
+    batch = next(trainer._synth_patch_batches(
+        data, np.random.default_rng(1), trainer.device_targets()))
+    tp = tr.trainable(params, dev)
+    opt = trainer.optimizer.init(tp)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: trainer.step_fn(tp, opt, *batch), runs=20)
+    peak = torch.cuda.max_memory_allocated()
+    fwd = wp_flops(cfg.batch_size, cfg.patch_lr, cfg.patch_lr)
+    nbytes = sum(np.asarray(a).nbytes if not isinstance(a, torch.Tensor)
+                 else a.numel() * a.element_size() for a in batch)
+    bound, by = step_bound(fwd, nbytes)
+    # each profiled step reads its loss on the host, as fit does
+    prof = profile_served_frames(
+        lambda _: float(trainer.step_fn(tp, opt, *batch)[2]), None, 5, {},
+        ops={"cudnn_convolution_ms_per_step": "aten::cudnn_convolution"})
+    # the same step on the card and on the CPU from the same parameters
+    out = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        pd = tr.trainable(params, d)
+        _, _, loss1, _ = trainer.step_fn(pd, trainer.optimizer.init(pd),
+                                         *batch)
+        out[label] = (float(loss1), pd)
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / out["cpu"][0]
+    p_err = tree_diff(out["card"][1], out["cpu"][1])
+    emit({"phase": "train_wp", "card": name_power, "config": "TrainConfig()",
+          "batch": [cfg.batch_size, cfg.patch_lr, cfg.patch_lr, 4],
+          "steps": len(losses), "loss_first": losses[0],
+          "loss_last": losses[-1], "losses": losses,
+          "fit_host_s": fit_s, "fit_host_ms_per_step_median":
+              statistics.median(r["seconds"] for r in trainer.history) * 1e3,
+          "step_ms": step_ms, "forward_flops": fwd,
+          "mflop_per_lr_px": fwd / (cfg.batch_size * cfg.patch_lr ** 2)
+          / 1e6, "step_bytes": nbytes, "bound_ms": bound, "bound_by": by,
+          "share_of_bound": bound / step_ms, "peak_device_mb": peak / 2 ** 20,
+          "device_idle_share": prof["device_idle_share"], "profile": prof,
+          "card_vs_cpu": {"loss_rel": loss_rel, "params_max_abs": p_err},
+          "memory": device_memory_stats()})
+    if not losses[-1] < losses[0] or loss_rel > 1e-5 or p_err > 1e-6:
+        raise AssertionError(f"train_wp: losses {losses[0]} -> "
+                             f"{losses[-1]}, card vs cpu {loss_rel} / "
+                             f"{p_err}")
+
+    # train_wp_image: image mode on one and on four 339x510 LR frames (the
+    # 384x512 bucket), remat off and on
+    flips = (x_lr, x_lr[::-1], x_lr[:, ::-1], x_lr[::-1, ::-1])
+    image = {"phase": "train_wp_image", "card": name_power,
+             "lr": list(x_lr.shape)}
+    for nb in (1, 4):
+        idata = {f"f{i}": {"X": np.ascontiguousarray(f)}
+                 for i, f in enumerate(flips[:nb])}
+        first = {}
+        for remat in (False, True):
+            icfg = tr.TrainConfig(mode="image", image_batch=nb, remat=remat)
+            itr = tr.WeightPredictorTrainer(WeightPredictor(), icfg,
+                                            device=dev)
+            ibatch = next(itr._image_batches(idata))
+            ip = tr.trainable(params, dev)
+            _, _, l1, _ = itr.step_fn(ip, itr.optimizer.init(ip), *ibatch)
+            first[remat] = (float(l1), ip)
+            ip = tr.trainable(params, dev)
+            iopt = itr.optimizer.init(ip)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: itr.step_fn(ip, iopt, *ibatch), runs=5,
+                         warmup=1)
+            image[f"batch_{nb}_remat_{remat}"] = {
+                "step_ms": ms, "batch": list(ibatch[0].shape),
+                "peak_device_mb": torch.cuda.max_memory_allocated()
+                / 2 ** 20}
+            del ibatch, ip, iopt
+            torch.cuda.empty_cache()
+        r_loss = abs(first[True][0] - first[False][0])
+        r_par = tree_diff(first[True][1], first[False][1])
+        image[f"batch_{nb}_remat_vs_plain"] = {
+            "loss_abs": r_loss, "params_max_abs": r_par,
+            "bit_equal": r_loss == 0 and r_par == 0}
+        if r_loss > 1e-6 * first[False][0] or r_par > 1e-6:
+            raise AssertionError(f"remat step differs: {image}")
+    hb, wb = image["batch_1_remat_False"]["batch"][1:3]
+    image["bound_ms_per_image"], image["bound_by"] = step_bound(
+        wp_flops(1, hb, wb), hb * wb * 4 * (4 + 16 * (2 + 16 + 1)))
+    emit(image)
+
+    # train_direct: the five MODEL_ZOO models at their checkpoints' widths,
+    # DirectSRConfig defaults with augment, built on the card
+    hr_rgba = div2k.align_crop(hr, 4)
+    ddata = {"synthetic": {"X": x_lr, "HR": hr_rgba}}
+    for name in DIRECT:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = empty_module(lambda: MODEL_ZOO[name](), dev)
+        dtr = direct_trainer.DirectSRTrainer(
+            model, direct_trainer.DirectSRConfig(augment=True,
+                                                 steps_per_epoch=4),
+            device=dev)
+        dparams = dtr.init_params()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        dparams = dtr.fit(ddata, params=dparams, epochs=1, log=quiet)
+        dcfg = dtr.cfg
+        lr_b, hr_b = dtr._batch(ddata, ["synthetic"],
+                                np.random.default_rng(2))
+        dopt = dtr.optimizer.init(dparams)
+        losses_d = []
+        step = lambda: losses_d.append(
+            dtr.step_fn(dparams, dopt, lr_b, hr_b)[2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, runs=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        for _ in range(12):
+            step()
+        fwd = direct_flops(model, dcfg.patch_lr, dcfg.patch_lr) \
+            * dcfg.batch_size
+        n_params = sum(t.numel() for t in tr.leaves(dparams))
+        dbytes = lr_b.nbytes + hr_b.nbytes + n_params * 4 * 2
+        bound, by = step_bound(fwd, dbytes)
+        res = {"phase": "train_direct", "card": name_power, "model": name,
+               "config": "DirectSRConfig(augment=True)",
+               "batch": list(lr_b.shape), "params": n_params,
+               "init_on_card_s": init_s, "fit_losses": [
+                   r["loss"] for r in dtr.history],
+               "same_batch_losses": [float(v) for v in losses_d],
+               "step_ms": ms, "forward_flops": fwd, "bound_ms": bound,
+               "bound_by": by, "share_of_bound": bound / ms,
+               "peak_device_mb": peak / 2 ** 20,
+               "profile": profile_served_frames(
+                   lambda _: float(dtr.step_fn(dparams, dopt, lr_b, hr_b)[2]),
+                   None, 2, {}, ops={"cudnn_convolution_ms_per_step":
+                                     "aten::cudnn_convolution"})}
+        emit(res)
+        # Adam's first update moves every weight by about the rate, and the
+        # loss on the batch can rise for a step or two before it falls
+        curve = res["same_batch_losses"]
+        if not np.isfinite(res["fit_losses"] + curve).all() \
+                or not curve[-1] < curve[0]:
+            raise AssertionError(f"train_direct {name}: {res}")
+        del model, dtr, dparams, dopt
+        torch.cuda.empty_cache()
+
+    # train_mlp: PixelMLP with model/pixel-mlp's training configuration
+    # (scripts/train_mlps.py: SGD 0.03, batch 8192, patience 8) on the
+    # per-pixel features of a 256x256 HR crop
+    n = min(64, *x_lr.shape[:2])
+    crop = torch.from_numpy(np.ascontiguousarray(x_lr[:n, :n])).to(dev)
+    feats = extract_pixel_features(crop, 4 * n, 4 * n, 4)
+    targs = gt_weight_map(4 * n, 4 * n, 4.0, device=dev).reshape(-1, 16)
+    mcfg = mlp_trainer.MLPTrainConfig(learning_rate=0.03, epochs=3,
+                                      batch_size=8192, patience=8)
+    mparams, mhist = mlp_trainer.train_pixel_mlp(
+        PixelMLP(), feats.cpu().numpy(), targs.cpu().numpy(), mcfg,
+        log=quiet, device=dev)
+    mstep = mlp_trainer.make_mlp_step(PixelMLP(), mcfg.max_norm)
+    mopt = tr.sgd(mcfg.learning_rate).init(mparams)
+    xb, yb = feats[:8192].contiguous(), targs[:8192].contiguous()
+    mms = time_ms(lambda: mstep(mparams, mopt, xb, yb), runs=20)
+    mflops = 2 * 8192 * (66 * 64 + 64 * 32 + 32 * 16)
+    mbound, mby = step_bound(mflops, xb.numel() * 4 + yb.numel() * 4)
+    emit({"phase": "train_mlp", "card": name_power,
+          "config": "MLPTrainConfig(learning_rate=0.03, batch_size=8192, "
+                    "patience=8)", "samples": int(feats.shape[0]),
+          "history": mhist, "step_ms": mms, "bound_ms": mbound,
+          "bound_by": mby})
+    if not mhist[-1] < mhist[0]:
+        raise AssertionError(f"train_mlp: {mhist}")
+
+    # train_sharded: both sharded steps on a data 2 x spatial 2 mesh of the
+    # card repeated, against the unsharded steps from the same parameters
+    mesh = Mesh([[dev] * 2] * 2, ("data", "spatial"))
+    sharded = {"phase": "train_sharded", "card": name_power,
+               "mesh": mesh.shape}
+    wp = WeightPredictor()
+    sstep, sshard, srepl = train_sharding.make_sharded_train_step(wp, mesh)
+    up_ = tr.trainable(params, dev)
+    _, _, uloss, _ = trainer.step_fn(up_, trainer.optimizer.init(up_),
+                                     *batch)
+    sp = srepl(params)
+    sopt = trainer.optimizer.init(sp)
+    sbatch = sshard(*batch)
+    _, _, sloss = sstep(sp, sopt, *sbatch)
+    cases = {"weight_predictor": (float(sloss), float(uloss),
+                                  next(iter(sp.values())), up_)}
+    sp2 = srepl(params)
+    sopt2 = trainer.optimizer.init(sp2)
+    sharded["weight_predictor_step_ms"] = time_ms(
+        lambda: sstep(sp2, sopt2, *sbatch), runs=10)
+    net = empty_module(lambda: SRResNetTPU(), dev)
+    dtr = direct_trainer.DirectSRTrainer(net, device=dev)
+    nparams = dtr.init_params()
+    lr_b, hr_b = dtr._batch(ddata, ["synthetic"], np.random.default_rng(3))
+    un = tr.trainable(nparams, dev)
+    _, _, unl, _ = dtr.step_fn(un, dtr.optimizer.init(un), lr_b, hr_b)
+    dstep, dshard, drepl = train_sharding.make_sharded_direct_step(net, mesh)
+    sn = drepl(nparams)
+    dbatch = dshard(lr_b, hr_b)
+    _, _, snl = dstep(sn, dtr.optimizer.init(sn), *dbatch)
+    cases["srresnet_tpu"] = (float(snl), float(unl), next(iter(sn.values())),
+                             un)
+    sn2 = drepl(nparams)
+    sopt3 = dtr.optimizer.init(sn2)
+    sharded["srresnet_tpu_step_ms"] = time_ms(
+        lambda: dstep(sn2, sopt3, *dbatch), runs=5, warmup=1)
+    sharded["srresnet_tpu_halo_rows"] = train_sharding.receptive_halo(net)
+    # equal steps: the loss within 1e-6, each leaf's gradient within 1e-5
+    # of its largest, the parameters at rtol 2e-5 / atol 2e-6 except where
+    # the gradient is below 10 x Adam's eps (1e-8): there the update
+    # g / (|g| + eps) turns the gradients' f32 reordering into a relative
+    # change of the update itself
+    ok = True
+    for key, (ls, lu, ps, pu) in cases.items():
+        agree = step_agreement(ps, pu)
+        sharded[key] = {"loss_rel": abs(ls - lu) / lu, **agree}
+        ok = ok and abs(ls - lu) <= 1e-6 * lu \
+            and agree["grads_max_rel_to_leaf_max"] <= 1e-5 \
+            and agree["max_abs_grad_where_outside"] < 1e-7
+    emit(sharded)
+    if not ok:
+        raise AssertionError(f"sharded steps differ from unsharded: "
+                             f"{sharded}")
+    del net, dtr, nparams, un, sn, sn2, sopt3, dbatch
+    torch.cuda.empty_cache()
+
+    # trained_serve: train_wp's parameters saved by checkpoint.save, loaded
+    # by ModelUpscaler and served through kernels A and B
+    ckpt = checkpoint.save(work / "ckpt", params, meta={
+        "model": "WeightPredictor", "scale": 4, "epochs": len(losses)})
+    up = ModelUpscaler(str(ckpt))
+    frame = np.random.default_rng(41).integers(0, 256, FRAME + (4,),
+                                               dtype=np.uint8)
+    frame[..., 3] = 255
+    zero_counts()
+    served = up(frame)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    g = super_resolve(up.model, up.params, frame, convention="train",
+                      tail="graph")
+    e = super_resolve(up.model, up.params, frame, convention="train",
+                      exact=True)
+    served_dev = torch.from_numpy(served).to(dev)
+    vs_graph, vs_exact = diff_u8(served_dev, g), diff_u8(served_dev, e)
+    emit({"phase": "trained_serve", "card": name_power,
+          "frame": [*FRAME, 4], "launches": counts,
+          "vs_graph_max": vs_graph[0], "vs_graph_share": vs_graph[1],
+          "vs_exact_max": vs_exact[0],
+          "params_equal_saved": tree_diff(up.params, params) == 0.0,
+          "std": float(served.astype(np.float32).std())})
+    shutil.rmtree(work, ignore_errors=True)
+    expect = {k: 0 for k in counts}
+    expect.update(packed_tail_fused=1, interleave_planar_u32=1)
+    if counts != expect or vs_graph[0] > 1 or vs_graph[1] >= 1e-3 \
+            or vs_exact[0] > 2 or served.shape != (FRAME[0] * 4,
+                                                    FRAME[1] * 4, 4):
+        raise AssertionError(f"trained_serve: {counts} {vs_graph} "
+                             f"{vs_exact}")
 
 
 def main() -> int:
@@ -1665,6 +2097,10 @@ def main() -> int:
         raise AssertionError(f"quality_table: {launches_q} {table}")
     del rebuilt, direct_ups, mlps
     torch.cuda.empty_cache()
+
+    # 6g. the training slice (no TPU kernel lies on it; its last phase
+    # serves what it trained through kernels A and B)
+    train_path(dev, name_power, zero_counts, read_counts)
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [

@@ -899,3 +899,34 @@ def test_direct_model_upscaler_matches_float64_on_card(cuda, name):
     batch = up.batch(frames, fetch=False)
     for b, g in zip(batch, got):
         assert _diff_u8(b, g)[0] <= 1
+
+
+@pytest.mark.cuda
+def test_weight_predictor_train_step_on_card_equals_cpu(cuda):
+    """One WeightPredictor train step (full width, a patch batch of the
+    TrainConfig defaults: 8 x 64x64 LR) on the card against the same step
+    on the CPU from the same parameters and batch: the loss within 1e-5
+    relative, the parameters within 1e-6 (cuDNN's f32 convs with TF32 off,
+    forward and backward)."""
+    from bicubic_interpolation_model_tpu_torch.data.onthefly import (
+        target_tiles)
+    from bicubic_interpolation_model_tpu_torch.models.weight_predictor import (
+        WeightPredictor)
+    from bicubic_interpolation_model_tpu_torch.train import trainer as tr
+    rng = np.random.default_rng(3)
+    img = rng.random((8, 64, 64, 4), np.float32)
+    off, y = (t[None].expand(8, *t.shape).contiguous()
+              for t in target_tiles(64, 4, device="cpu"))
+    mask = torch.ones((8, 256, 256, 1))
+    base = tr.fresh_params(WeightPredictor(), "cpu", 0)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = tr.trainable(base, dev)
+        opt = tr.adam(1e-4).init(params)
+        step = tr.make_weight_predictor_step(WeightPredictor())
+        params, opt, loss, _ = step(params, opt, img, off, y, mask)
+        out[str(dev)] = (float(loss), [t.detach().cpu()
+                                       for t in tr.leaves(params)])
+    (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * lc
+    assert max(float((a - b).abs().max()) for a, b in zip(pc, pg)) <= 1e-6

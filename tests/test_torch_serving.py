@@ -123,9 +123,9 @@ def test_needs_a_card_unless_cpu_is_asked():
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port leaves jax, flax, msgpack and the
-    JAX package out of sys.modules (names matched exactly: the port's own
-    package shares the JAX package's prefix)."""
+    """Importing every module of the port leaves jax, flax, optax, msgpack
+    and the JAX package out of sys.modules (names matched exactly: the
+    port's own package shares the JAX package's prefix)."""
     mods = []
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
             "*.py")):
@@ -136,7 +136,7 @@ def test_port_imports_nothing_of_jax():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "banned = ('jax', 'flax', 'msgpack', "
+        "banned = ('jax', 'flax', 'optax', 'msgpack', "
         "'bicubic_interpolation_model_tpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in banned)\n"
         "assert not bad, bad\n")
@@ -152,6 +152,9 @@ def test_port_imports_nothing_of_jax():
                  "models.srresnet_tpu", "models.mlp_predictor",
                  "models.tfjs_import", "evaluation.metrics",
                  "evaluation.compare", "data.binfmt", "utils.imageio",
-                 "utils.config", "runtime.native"):
+                 "utils.config", "runtime.native", "data.div2k",
+                 "data.onthefly", "data.validate", "train.trainer",
+                 "train.direct_trainer", "train.mlp_trainer",
+                 "parallel.train_sharding", "utils.profiling"):
         assert pkg + name in mods
-    assert len(mods) >= 40
+    assert len(mods) >= 55
