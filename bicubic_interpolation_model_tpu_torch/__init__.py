@@ -6,11 +6,17 @@ in PyTorch, and every Pallas kernel on a ported path becomes a CUDA C++
 kernel written by hand (``csrc/``, built by :mod:`.runtime.build` on first
 use). It imports nothing of the JAX package.
 
-Ported so far (learned-SR serving, classical resize serving, adaptive
-bicubic serving, band/batch-sharded serving, the direct-regression and MLP
-baselines, evaluation and image I/O, data generation and training):
+Ported: learned-SR serving, classical resize serving, adaptive bicubic
+serving, band/batch-sharded serving, the direct-regression and MLP
+baselines, evaluation and image I/O, data generation and training, the
+bench and the CLI:
 
-core        interpolation kernels and axis plans (NumPy, float64, host)
+core        interpolation kernels, axis plans and the float64 JS-semantics
+            oracle (NumPy, float64, host)
+bench       performance harness (reference CSV schema, fenced on the card)
+            and the suite behind ``bench_torch.py`` (headline, parity)
+cli         ``python -m bicubic_interpolation_model_tpu_torch.cli``: the
+            JAX package's eleven subcommands
 train       msgpack checkpoint reader and writer (flax's bytes, no
             flax/msgpack needed); the trainers of the weight predictor
             (patch and image mode), the direct models and the MLPs

@@ -25,17 +25,42 @@ LAYERS = ("conv_in", "conv_res", "upsample", "conv_att", "conv_off",
           "conv_out")
 
 
-def forward_params(p: dict, img: torch.Tensor,
-                   offsets: torch.Tensor) -> torch.Tensor:
-    """The forward on a flax-style ``{layer: {kernel, bias}}`` tree:
-    [B,H,W,C] image (0..1) + [B,H*S,W*S,2] offsets → [B,H*S,W*S,16]."""
+def _gated_features(p: dict, img: torch.Tensor) -> torch.Tensor:
+    """The LR trunk, the upsample and the attention gate: ``up * att``."""
     x = torch.relu(conv_nhwc(img, **p["conv_in"]))
     x = x + conv_nhwc(x, **p["conv_res"])
     up = pixel_shuffle_upsample(x, **p["upsample"])
-    att = torch.sigmoid(conv_nhwc(up, **p["conv_att"]))
-    off = conv_nhwc(offsets, **p["conv_off"])
-    merged = torch.cat([up * att, off], dim=-1)
+    return up * torch.sigmoid(conv_nhwc(up, **p["conv_att"]))
+
+
+def _offset_features(p: dict, offsets: torch.Tensor) -> torch.Tensor:
+    return conv_nhwc(offsets, **p["conv_off"])
+
+
+def _head(p: dict, merged: torch.Tensor) -> torch.Tensor:
     return torch.tanh(conv_nhwc(merged, **p["conv_out"]))
+
+
+def _call(segment, *args):
+    return segment(*args)
+
+
+def forward_params(p: dict, img: torch.Tensor, offsets: torch.Tensor,
+                   run=_call) -> torch.Tensor:
+    """The forward on a flax-style ``{layer: {kernel, bias}}`` tree:
+    [B,H,W,C] image (0..1) + [B,H*S,W*S,2] offsets → [B,H*S,W*S,16].
+
+    It runs in three segments, each through ``run(segment, *args)``: the
+    LR trunk with the upsample and the attention gate, ``conv_off``, and
+    ``conv_out`` → tanh on their concatenation. The trainer's remat passes
+    a ``torch.utils.checkpoint`` there, so that the backward re-creates
+    one segment's SR-resolution tensors at a time. The concatenation lies
+    between the segments: the head keeps it as its input, and the
+    segments' outputs it was made of are freed, so the head's backward
+    holds the 32 merged channels once, not beside their 16 + 16 sources."""
+    gated = run(_gated_features, p, img)
+    off = run(_offset_features, p, offsets)
+    return run(_head, p, torch.cat([gated, off], dim=-1))
 
 
 class WeightPredictor(TreeModule):
@@ -63,9 +88,11 @@ class WeightPredictor(TreeModule):
             tree, device=self.conv_in.kernel.device))
 
     @staticmethod
-    def apply(params, img, offsets):
-        """The forward on a ``{"params": ...}`` tree (or its inner dict)."""
-        return forward_params(params.get("params", params), img, offsets)
+    def apply(params, img, offsets, run=_call):
+        """The forward on a ``{"params": ...}`` tree (or its inner dict);
+        ``run`` as in :func:`forward_params`."""
+        return forward_params(params.get("params", params), img, offsets,
+                              run)
 
     def forward(self, img, offsets):
         return self.apply(self.tree(), img, offsets)

@@ -59,7 +59,7 @@ class TrainConfig:
     seed: int = 0
     log_every: int = 10
     adaptive_targets: bool = False  # v4.0-style luma-modulated GT weights
-    # recompute the forward in the backward pass
+    # recompute the forward in the backward pass, segment by segment
     # (torch.utils.checkpoint): whole-image batches keep the SR-resolution
     # activations of every image alive for the backward otherwise
     remat: bool = False
@@ -201,13 +201,18 @@ def make_weight_predictor_step(model, *, adaptive: bool = False,
     (numpy or tensors) moves to the parameters' device.
 
     With ``adaptive`` the GT target is modulated inside the step by the
-    per-tap luma-contrast factors of v4.0, per image. With ``remat`` the
-    forward is recomputed in the backward pass."""
+    per-tap luma-contrast factors of v4.0, per image. With ``remat`` each
+    of the forward's segments (``weight_predictor.forward_params``) is
+    recomputed in the backward pass on its own, so the backward holds one
+    segment's SR-resolution activations at a time, not the whole
+    forward's."""
+
+    def segment(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False)
 
     def forward(params, img, off):
         if remat:
-            return checkpoint(model.apply, params, img, off,
-                              use_reentrant=False)
+            return model.apply(params, img, off, run=segment)
         return model.apply(params, img, off)
 
     def step(params, opt_state, img, off, y, mask):
@@ -218,9 +223,12 @@ def make_weight_predictor_step(model, *, adaptive: bool = False,
                 y = adaptive_targets(img, y, scale)
             opt_state.zero_grad()
             loss, mae = masked_losses(forward(params, img, off), y, mask)
+            # a reported metric: its graph would keep the SR-resolution
+            # error map alive through the whole backward
+            mae = mae.detach()
             loss.backward()
             opt_state.step()
-        return params, opt_state, loss.detach(), mae.detach()
+        return params, opt_state, loss.detach(), mae
 
     return step
 

@@ -29,7 +29,11 @@ bands ≤1 LSB from the sharded graph tail and ≤2 from the single-frame
 ``super_resolve`` (kernel A). Direct-regression checkpoints served by
 ``ModelUpscaler`` on the card (cuDNN convs, TF32 off): ≤1 u8 from the same
 model run in float64 on the card with a share < 1e-3, ``batch`` within ±1
-of per-frame calls."""
+of per-frame calls. The bench (bench/): the harness's fenced wall time of
+a CUDA workload at least 0.9 of its CUDA-event time (the two clocks
+differ by the events' own resolution); ``check_parity`` of kernels C, D,
+D planar and F at 1080x1920 RGBA -> 4x ≤1 u8 from the port's float64
+oracle."""
 
 import pathlib
 import subprocess
@@ -930,3 +934,34 @@ def test_weight_predictor_train_step_on_card_equals_cpu(cuda):
     (lc, pc), (lg, pg) = out["cpu"], out[str(cuda)]
     assert abs(lg - lc) <= 1e-5 * lc
     assert max(float((a - b).abs().max()) for a, b in zip(pc, pg)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_harness_fence_holds_on_card(cuda):
+    """performance_test's wall time of a CUDA workload is at least the
+    CUDA-event time of the same work: the fence waits for the card."""
+    from bicubic_interpolation_model_tpu_torch.bench import harness
+    x = torch.randn(2048, 2048, device=cuda)
+    work = lambda: [x @ x for _ in range(20)]
+    work()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    work()
+    b.record()
+    b.synchronize()
+    res = harness.performance_test(work, test_item="fence", runs=3,
+                                   warmup=1, out_dir=None)
+    assert min(res.wall_ms) >= 0.9 * a.elapsed_time(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas_mxu", "pallas_phase",
+                                  "pallas_phase_planar", "pallas"])
+def test_check_parity_at_the_bench_geometry_on_card(cuda, impl):
+    """Kernels C, D (both layouts) and F at 1080x1920 RGBA -> 4x within 1
+    u8 of the port's float64 oracle, every 67th output row."""
+    from bicubic_interpolation_model_tpu_torch.bench import suite
+    assert suite.check_parity(4, "bicubic", impl=impl, h=1080,
+                              w=1920) <= 1

@@ -123,10 +123,11 @@ def test_needs_a_card_unless_cpu_is_asked():
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port leaves jax, flax, optax, msgpack
-    and the JAX package out of sys.modules (names matched exactly: the
-    port's own package shares the JAX package's prefix)."""
-    mods = []
+    """Importing every module of the port, and the port's bench script
+    ``bench_torch.py``, leaves jax, flax, optax, msgpack and the JAX
+    package out of sys.modules (names matched exactly: the port's own
+    package shares the JAX package's prefix)."""
+    mods = ["bench_torch"]
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
             "*.py")):
         parts = p.relative_to(ROOT).with_suffix("").parts
@@ -155,6 +156,8 @@ def test_port_imports_nothing_of_jax():
                  "utils.config", "runtime.native", "data.div2k",
                  "data.onthefly", "data.validate", "train.trainer",
                  "train.direct_trainer", "train.mlp_trainer",
-                 "parallel.train_sharding", "utils.profiling"):
+                 "parallel.train_sharding", "utils.profiling",
+                 "core.oracle", "bench.harness", "bench.suite", "cli.main",
+                 "cli.__main__"):
         assert pkg + name in mods
     assert len(mods) >= 55
