@@ -4,7 +4,7 @@
 //           _adaptive_kernel, the Pallas TPU kernel behind
 //           adaptive_resize_pallas.
 //
-// Computes, for a u8 image [b][h][w][c] (c = 3 or 4) and an integer scale s,
+// Computes, for a u8 image [b][h][w][c] (c = 1 to 4) and an integer scale s,
 // every output pixel (r*s+q, x*s+p) as a normalised 16-tap sum over the LR
 // pixels (r-1..r+2, x-1..x+2), clamped to the image:
 //   weight(n,m) = E + (A - E) * F(n,m),  A = wy[r][q][n] * wx[p][m][x],
@@ -17,11 +17,14 @@
 //   edge (5x5 luma variance > 50):  min(1.5, 1 + d/100)
 //   flat (variance < 10):           max(0.5, 1 - d/30)
 //   texture:                        0.8 + 0.4 exp(-d/20)
-// Luma is BT.709 of the raw u8 channels; the variance window is clamped to
-// the image and read at the clamped centre. The result is stored as
+// Luma is BT.709 of the raw u8 channels, channel min(i, c-1) standing in
+// for channel i of a frame with fewer than 3 (as the JAX package's clamped
+// indexing reads them); the variance window is clamped to the image and
+// read at the clamped centre. The result is stored as
 // clip(int(acc / wsum + 0.5), 0, 255).
 // Layouts: interleaved HWC u8 [b][h*s][w*s][c], or column-phase planar u32
-// words [b][s][h*s][w] (the c channel bytes of a pixel, little-endian).
+// words [b][s][h*s][w] (the c channel bytes of a pixel, little-endian, 0
+// above them).
 //
 // What bounds it on the H100: operations. A 1080x1920 RGBA frame at 4x moves
 // 141 MB (~0.042 ms at 3.35 TB/s); its f32 work is what sets the pace, so the
@@ -161,15 +164,20 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
     const int gr = clampi(r0 - 2 + e / WIN_X, 0, h - 1);
     const int gc = clampi(x0 - 2 + e % WIN_X, 0, w - 1);
     const uint8_t* p = img + ((size_t)gr * w + gc) * C;
+    // the pixel's C bytes, and no byte past them
     uint32_t word;
-    if (C == 4) {
+    if constexpr (C == 4) {
       word = *reinterpret_cast<const uint32_t*>(p);
     } else {
-      word = (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16);
+      word = p[0];
+#pragma unroll
+      for (int ch = 1; ch < C; ++ch) word |= (uint32_t)p[ch] << (8 * ch);
     }
     s_pix[e] = word;
-    const float r = (float)(word & 255u), g = (float)((word >> 8) & 255u),
-                bl = (float)((word >> 16) & 255u);
+    // channel min(i, C-1) for i = 0, 1, 2
+    constexpr int CH_G = C > 1 ? 1 : C - 1, CH_B = C > 2 ? 2 : C - 1;
+    const float r = (float)(word & 255u), g = (float)((word >> (8 * CH_G)) & 255u),
+                bl = (float)((word >> (8 * CH_B)) & 255u);
     s_lum[e] = __fadd_rn(__fadd_rn(__fmul_rn(r, (float)0.2126), __fmul_rn(g, (float)0.7152)),
                          __fmul_rn(bl, (float)0.0722));
   }
@@ -305,16 +313,25 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
                     acc[ch] = fmaf(t, pix[1 + cy][1 + cx][ch], acc[ch]);
                 }
                 const float rec = rcp_approx(wsum);
-                const uint32_t t01 =
-                    __byte_perm(round_byte(acc[0], rec), round_byte(acc[1], rec), 0x1140);
+                // byte ch holds channel ch and the bytes above NC are 0 (255
+                // for an opaque alpha); t01's bytes 2 and 3 copy round_byte's
+                // byte 1, which is 0
                 uint32_t word;
-                if constexpr (NC == 4)
-                  word = __byte_perm(t01, __byte_perm(round_byte(acc[2], rec),
-                                                      round_byte(acc[3], rec), 0x1140),
-                                     0x5410);
-                else
-                  word = __byte_perm(t01, round_byte(acc[2], rec), 0x2410) |
-                         (OPAQUE ? 0xff000000u : 0u);
+                if constexpr (NC == 1) {
+                  word = round_byte(acc[0], rec) & 255u;
+                } else {
+                  const uint32_t t01 =
+                      __byte_perm(round_byte(acc[0], rec), round_byte(acc[1], rec), 0x1140);
+                  if constexpr (NC == 2)
+                    word = t01;
+                  else if constexpr (NC == 3)
+                    word = __byte_perm(t01, round_byte(acc[2], rec), 0x2410) |
+                           (OPAQUE ? 0xff000000u : 0u);
+                  else
+                    word = __byte_perm(t01, __byte_perm(round_byte(acc[2], rec),
+                                                        round_byte(acc[3], rec), 0x1140),
+                                       0x5410);
+                }
                 const int col = lx * pc + p - p0;
                 s_out[(ly * qc + q - q0) * stride + padded(col)] = word;
               }
@@ -345,7 +362,7 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
           const int gr = (r0 + sr / qc) * s + q0 + sr % qc;
           if (gr >= ho) continue;
           const uint32_t* srow = s_out + sr * stride;
-          if (C == 4) {
+          if constexpr (C == 4) {
             uint32_t* orow = reinterpret_cast<uint32_t*>(out) + (b * ho + gr) * (size_t)wo;
             if (whole && wo % 4 == 0) {
               // x0*s and the row start are multiples of 4 words: 16-byte
@@ -364,6 +381,7 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
               }
             }
           } else {
+            // byte stores: a row of wo*C bytes need not start on a word
             uint8_t* orow = out + (b * ho + gr) * (size_t)wo * C;
             for (int bcol = lane; bcol < cols_o * C; bcol += 32) {
               const int sc = bcol / C, ch = bcol - sc * C;
@@ -418,7 +436,7 @@ int launch(const uint8_t* in, const float* wy, const float* wye, const float* wx
 
 }  // namespace
 
-// in:      [b, h, w, c] u8, contiguous, c = 3 or 4
+// in:      [b, h, w, c] u8, contiguous, c = 1 to 4 (4-byte aligned at c = 4)
 // wy, wye: [h, 4*s] f32;  wx: [8*s, w] f32 (wx over wx*eqx)
 // out:     planar ? u32 [b, s, h*s, w] : u8 [b, h*s, w*s, c], 16-byte
 //          aligned
@@ -438,5 +456,7 @@ extern "C" int bim_adaptive_resize(const uint8_t* in, const float* wy, const flo
     return opaque ? launch<4, true>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st)
                   : launch<4, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
   if (c == 3) return launch<3, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
+  if (c == 2) return launch<2, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
+  if (c == 1) return launch<1, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
   return (int)cudaErrorInvalidValue;
 }

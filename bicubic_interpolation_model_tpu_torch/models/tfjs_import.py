@@ -60,3 +60,13 @@ def load_weight_predictor(model_dir, *, device="cuda"):
                          resolve_device(device))
     model.load_tree({"params": params})
     return model, model.tree()
+
+
+def reference_model_names(reference_root="/root/reference/version3.0"
+                          ) -> list[str]:
+    """Sorted names of the directories under ``<reference_root>/model``
+    that hold a ``model.json``; ``[]`` when there is no such directory."""
+    d = pathlib.Path(reference_root) / "model"
+    if not d.exists():
+        return []
+    return sorted(p.name for p in d.iterdir() if (p / "model.json").exists())

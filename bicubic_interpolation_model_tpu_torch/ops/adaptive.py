@@ -13,13 +13,16 @@
      duplicates;
    * region classes from the 5x5 variance of the BT.709 luma of the raw u8
      channels (flat < 10, edge > 50, edge wins), read at the clamped centre,
-     and the three modulation laws.
+     and the three modulation laws. A frame of fewer than 3 channels reads
+     its last channel for the ones it lacks (:func:`luma_bt709`), as the
+     JAX package's clamped indexing does.
 
    These two functions are the one place that routes adaptive frames: on a
    CUDA device ``impl="auto"`` takes the fused kernel
    (:mod:`.adaptive_fused`, kernel E) for everything it takes
-   (:func:`~.adaptive_fused.fused_takes`: uint8, 3 or 4 channels, every
-   integer scale), the plain graph :func:`_adaptive_resize_u8` only for the rest;
+   (:func:`~.adaptive_fused.fused_takes`: uint8, 1 to 4 channels, every
+   integer scale), the plain graph :func:`_adaptive_resize_u8` only for the
+   rest (more than 4 channels, which ``impl="pallas"`` refuses);
    on the CPU ``auto`` is the plain graph. ``impl="pallas"`` forces the
    kernel's route (its plain version on the CPU), ``impl="jnp"`` the plain
    graph: the JAX package's names.
@@ -51,8 +54,14 @@ def _cubic_memo_np(t, a: float = -0.5):
     return cubic_keys(t, a=a)
 
 
-def luma_bt709(img_rgb_first3: torch.Tensor) -> torch.Tensor:
-    r, g, b = (img_rgb_first3[..., i] for i in range(3))
+def luma_bt709(img: torch.Tensor) -> torch.Tensor:
+    """BT.709 luma of the first three channels of a [..., C] float frame,
+    summed in this order. With C < 3 channel ``min(i, C - 1)`` stands in for
+    channel i (the JAX package indexes with jnp's clamping), so a gray
+    frame's luma is ``(v*0.2126 + v*0.7152) + v*0.0722``, not ``v``: a
+    region class can flip on the last bit at a threshold."""
+    c = img.shape[-1]
+    r, g, b = (img[..., min(i, c - 1)] for i in range(3))
     return r * 0.2126 + g * 0.7152 + b * 0.0722
 
 
@@ -242,9 +251,11 @@ def adaptive_gt_factors(lr_float, scale: int, *, device="cuda"):
     """Per-tap adaptive factors of the data generator, upsampled to
     [H_sr, W_sr, 16].
 
-    ``lr_float`` is the [H_lr, W_lr, >=3] float image in [0, 1]; the factors
-    are a function of the LR base cell only (all S^2 HR phases of a cell
-    share them), so they are computed at LR resolution and phase-repeated."""
+    ``lr_float`` is the [H_lr, W_lr, C] float image in [0, 1] (C < 3 reads
+    the last channel for the missing ones, as :func:`luma_bt709` does); the
+    factors are a function of the LR base cell only (all S^2 HR phases of a
+    cell share them), so they are computed at LR resolution and
+    phase-repeated."""
     lr = torch.as_tensor(lr_float).to(resolve_device(device))
     h, w = lr.shape[:2]
     luma = luma_bt709(lr.to(torch.float32))

@@ -21,8 +21,9 @@ duplicates at the borders included) and ``A * F`` elsewhere.
 Layouts: ``"hwc"`` uint8 [.., H*S, W*S, C]; ``"hwc32"`` (C = 4) the same
 bytes viewed as RGBA32 words, uint32 [.., H*S, W*S]; ``"planar"`` uint32
 [.., S, H*S, W], word ``(px, r, X)`` holding the C channels of output pixel
-``(r, X*S + px)`` as little-endian bytes (exact extents; the JAX form pads
-them to its tile grid, the valid region is the same).
+``(r, X*S + px)`` as little-endian bytes and 0 in the bytes above C (exact
+extents; the JAX form pads them to its tile grid, the valid region is the
+same). C is 1 to 4, as in the JAX kernel: a pixel packs into one word.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from .adaptive import (EDGE, FLAT, _cubic_memo_np, _edge_pad, centre_offset,
 
 def fused_takes(scale, c: int) -> bool:
     """True if :func:`adaptive_resize_fused` takes (scale, channels): an
-    integer scale >= 1 and 3 or 4 channels (uint8 frames)."""
-    return float(scale) == int(scale) and scale >= 1 and c in (3, 4)
+    integer scale >= 1 and 1 to 4 channels (uint8 frames)."""
+    return float(scale) == int(scale) and scale >= 1 and c in (1, 2, 3, 4)
 
 
 def _axis_vectors(n_in: int, scale: int, a: float):
@@ -117,7 +118,7 @@ def adaptive_resize_reference(img_bhwc: torch.Tensor, wy: torch.Tensor,
     classes, the 16 factor maps of each centre variant, then per output
     phase the 16 weights ``E + (A - E) * F`` summed tap by tap (rows outer),
     ``clip(int(acc * (1/wsum) + 0.5), 0, 255)``; the same layouts.
-    [B, H, W, C] uint8 with C in {3, 4}."""
+    [B, H, W, C] uint8 with C in 1..4."""
     b, h, w, c = img_bhwc.shape
     opaque = opaque_alpha and c == 4
     nc = 3 if opaque else c
@@ -183,7 +184,7 @@ def _launch(img, wy, wye, wx, s, layout, opaque, classes_out, stage):
         raise ValueError(f"adaptive_resize_fused takes at most 65535 "
                          f"frames, got {b}")
     img = img.contiguous()
-    if img.data_ptr() % 4:          # the kernel reads an RGBA pixel as a word
+    if c == 4 and img.data_ptr() % 4:   # it reads an RGBA pixel as a word
         img = img.clone()
     planar = layout == "planar"
     if planar:
@@ -213,7 +214,7 @@ def adaptive_resize_fused(img_u8, scale: int, a: float = -0.5, *,
                           weight_cache: dict | None = None, device=None,
                           classes_out: torch.Tensor | None = None,
                           stage_phases: int = 0):
-    """Fused adaptive-bicubic SR of an HWC or BHWC uint8 image with 3 or 4
+    """Fused adaptive-bicubic SR of an HWC or BHWC uint8 image with 1 to 4
     channels at an integer scale. A tensor runs where it lies: a CUDA
     tensor launches the kernel (or raises), a CPU tensor runs
     :func:`adaptive_resize_reference`. A numpy frame is moved to ``device``,
@@ -244,10 +245,9 @@ def adaptive_resize_fused(img_u8, scale: int, a: float = -0.5, *,
     if squeeze_b:
         img = img[None]
     b, h, w, c = img.shape
-    if c not in (3, 4):
-        raise ValueError(f"adaptive_resize_fused takes 3 or 4 channels "
-                         f"(the luma needs RGB, a pixel packs into one "
-                         f"32-bit word), got {c}")
+    if not fused_takes(s, c):
+        raise ValueError(f"adaptive_resize_fused takes 1 to 4 channels (a "
+                         f"pixel packs into one 32-bit word), got {c}")
     if layout == "hwc32" and c != 4:
         raise ValueError("layout='hwc32' requires 4 channels")
     if classes_out is not None and (

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 from fractions import Fraction
+from typing import Literal
 
 import numpy as np
 import torch
@@ -42,6 +43,9 @@ import torch
 from ..core import plan as planlib
 from ..core.plan import AxisPlan
 from ..runtime.device import resolve_device
+
+#: the classical methods by name, as the JAX package types them
+Method = Literal["nearest", "bilinear", "bicubic", "lanczos"]
 
 
 def round_u8(x: torch.Tensor) -> torch.Tensor:

@@ -212,7 +212,7 @@ _ADAPTIVE_HALO_DOWN = 3   # centre row can be b+1; variance reaches b+3
 def adaptive_resize_spatial_sharded(img, scale, *, mesh: Mesh,
                                     axis: str = "spatial", a: float = -0.5,
                                     layout: str = "hwc"):
-    """Adaptive-bicubic SR of one HWC uint8 frame (C = 3 or 4) with its LR
+    """Adaptive-bicubic SR of one HWC uint8 frame (C = 1 to 4) with its LR
     rows band-sharded over ``mesh[axis]``: kernel E per band (its plain
     version on a CPU device).
 

@@ -145,9 +145,10 @@ class Upscaler:
 
     ``method="adaptive"`` (integer scales only) hands its frames to
     ``ops/adaptive``, which routes them alike: kernel E
-    (``ops/adaptive_fused``) on a CUDA device for uint8 frames of 3 or 4
-    channels. There ``impl`` is ``auto`` (``pallas_phase`` means the same),
-    ``pallas`` or ``jnp``, and ``stream`` never groups frames.
+    (``ops/adaptive_fused``) on a CUDA device for uint8 frames of 1 to 4
+    channels (gray, gray and alpha, RGB, RGBA). There ``impl`` is ``auto``
+    (``pallas_phase`` means the same), ``pallas`` or ``jnp``, and
+    ``stream`` never groups frames.
 
     ``bucket``: in the JAX package, frame extents round up to multiples of
     this many LR pixels so one compiled program serves a bucket of sizes,

@@ -9,8 +9,8 @@ PyTorch version on the card, serves frames through the port's
 at 348x510 -> 4x RGBA), through its classical ``Upscaler`` (1080x1920 RGBA
 -> 4x, 2.5x and the forced phase route), through
 ``Upscaler(method="adaptive")`` and ``resize(impl="pallas")`` (1080x1920
-RGBA -> 4x) and through the band- and batch-sharded paths of ``parallel/``
-on meshes of 2 and 4 bands on the one card (learned at 348x510, classical
+RGBA -> 4x, and a gray 1080x1920 frame through kernel E) and through the
+band- and batch-sharded paths of ``parallel/`` on meshes of 2 and 4 bands on the one card (learned at 348x510, classical
 and adaptive at 1080x1920, a batch of 8 frames), checks launch counts and
 outputs, and times the kernels, their plain versions and the served
 frames. Then it serves the five direct-regression checkpoints
@@ -426,12 +426,16 @@ def check_kernel_e(adf, ilv, dev, emit_fn):
     fused = adf.adaptive_resize_fused
     worst = 0
     for s in (1, 2, 3, 4):
-        res = {"phase": "kernel_e", "scale": s, "cases": 0, "max": 0,
+        res = {"phase": "kernel_e", "scale": s, "channels": [1, 2, 3, 4],
+               "cases": 0, "max": 0,
                "share": 0.0, "f64_max": 0, "f64_share": 0.0,
                "class_diff_share": 0.0, "pixels_texture_flat_edge": [0, 0, 0]}
-        rng = np.random.default_rng(500 + s)
+        # one stream for 3 and 4 channels, another for 1 and 2
+        rng34, rng12 = (np.random.default_rng(500 + s),
+                        np.random.default_rng(600 + s))
         for (h, w), c in itertools.product(((13, 11), (8, 40), (24, 70)),
-                                           (3, 4)):
+                                           (1, 2, 3, 4)):
+            rng = rng34 if c > 2 else rng12
             img = torch.from_numpy(all_class_frames(rng, 3, h, w, c)).to(dev)
             cache = {}
             cls = torch.empty((3, h, w), dtype=torch.uint8, device=dev)
@@ -448,7 +452,10 @@ def check_kernel_e(adf, ilv, dev, emit_fn):
                           for i in range(3))
             planar = fused(img, s, layout="planar")
             forms = torch.equal(adf.unpack_planar(planar, h, w, s, c), got)
-            if c == 4:
+            if c < 4:   # the planar words' bytes above the C channels: 0
+                forms = forms and not bool(planar.view(torch.uint8).reshape(
+                    -1, 4)[:, c:].any())
+            else:
                 words = fused(img[0], s, layout="hwc32")
                 opq = img.clone()
                 opq[..., 3] = 255
@@ -482,10 +489,11 @@ def check_kernel_e(adf, ilv, dev, emit_fn):
     # (scales above 14); a bound on the staged phases makes small scales
     # take the same passes, which must not change a byte
     res = {"phase": "kernel_e_passes", "cases": 0, "max": 0, "share": 0.0}
-    rng = np.random.default_rng(505)
+    rng34, rng12 = np.random.default_rng(505), np.random.default_rng(605)
     for c, (s, stages) in itertools.product(
-            (3, 4), ((15, (0,)), (17, (0, 40, 5)), (5, (0, 12, 3, 1)),
+            (1, 2, 3, 4), ((15, (0,)), (17, (0, 40, 5)), (5, (0, 12, 3, 1)),
                      (4, (0, 8, 2)))):
+        rng = rng34 if c > 2 else rng12
         img = torch.from_numpy(all_class_frames(rng, 2, 19, 41, c)).to(dev)
         cache = {}
         outs = [fused(img, s, weight_cache=cache, stage_phases=st)
@@ -505,6 +513,30 @@ def check_kernel_e(adf, ilv, dev, emit_fn):
         res["share"] = max(res["share"], share)
     emit_fn(res)
     return max(worst, res["max"])
+
+
+def e_vs_float64(adf, got, img, cls, wts, s):
+    """Kernel E's frame ``got`` [H*s, W*s, C] of the one frame ``img``
+    [1, H, W, C] (classes ``cls`` [1, H, W] as the kernel computed them)
+    against its float64 plain version. In f32 the variance sq - s*s/25
+    cancels (sums reach 1.6e6), so a centre within that error of a
+    threshold takes another class in float64 and with it another law for
+    its whole pixel. Those LR cells (any of their four candidate centres
+    flipped) are left out; returns (max, share) elsewhere, the max in the
+    cells left out, and the share of LR pixels whose class flips."""
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        luma_bt709, region_classes)
+    flip = cls != region_classes(luma_bt709(img.double()))
+    hit = flip.clone()
+    hit[:, :-1] |= flip[:, 1:]
+    hit[:, :, :-1] |= flip[:, :, 1:]
+    hit[:, :-1, :-1] |= flip[:, 1:, 1:]
+    keep = ~hit[0].repeat_interleave(s, 0).repeat_interleave(s, 1)
+    d64 = (got.to(torch.int16) - adf.adaptive_resize_reference(
+        img, *wts, s, dtype=torch.float64)[0].to(torch.int16)).abs()
+    flipped_max = int(d64[~keep].max()) if bool(hit.any()) else 0
+    return ((int(d64[keep].max()), float((d64[keep] != 0).double().mean())),
+            flipped_max, float(flip.double().mean()))
 
 
 def check_kernel_f(banded, mxu, dev, emit_fn):
@@ -1339,6 +1371,22 @@ def main() -> int:
     from bicubic_interpolation_model_tpu_torch.serving import (
         ModelUpscaler, Upscaler)
 
+    # the launch counts of the seven kernels' wrappers
+    wrappers = {"packed_tail_fused": pt.packed_tail_fused,
+                "packed_tail": pt.packed_tail,
+                "interleave_planar_u32": ilv.interleave_planar_u32,
+                "resize_mxu": mxu.resize_mxu,
+                "resize_phase": phase.resize_phase,
+                "adaptive_resize_fused": adf.adaptive_resize_fused,
+                "resize_banded": banded.resize_banded}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
     # the main path runs under PyTorch's default flags (cuDNN TF32 on): the
     # package keeps its f32 convs at full precision itself
     dev = torch.device("cuda")
@@ -1602,25 +1650,11 @@ def main() -> int:
     adf.adaptive_resize_fused(ad_dev[2:3], 4, classes_out=cls_full)
     cls_diff = float((cls_full != region_classes(luma_bt709(
         ad_dev[2:3].float()))).double().mean())
-    # against float64: in f32 the variance sq - s*s/25 cancels (sums reach
-    # 1.6e6), so a centre within that error of a threshold takes another
-    # class in float64 and with it another law for its whole pixel. Those
-    # LR cells (any of their four candidate centres flipped) are counted
-    # and left out; everywhere else the <=1 LSB contract is held.
-    flip = cls_full != region_classes(luma_bt709(ad_dev[2:3].double()))
-    hit = flip.clone()
-    hit[:, :-1] |= flip[:, 1:]
-    hit[:, :, :-1] |= flip[:, :, 1:]
-    hit[:, :-1, :-1] |= flip[:, 1:, 1:]
-    keep = ~hit[0].repeat_interleave(4, 0).repeat_interleave(4, 1)
-    d64 = (words.view(torch.uint8).reshape(ad_shape).to(torch.int16)
-           - adf.adaptive_resize_reference(
-               ad_dev[2:3], *wts_e, 4, dtype=torch.float64)[0].to(
-               torch.int16)).abs()
-    f64 = (int(d64[keep].max()), float((d64[keep] != 0).double().mean()))
-    f64_flipped_max = int(d64[~keep].max()) if bool(hit.any()) else 0
-    f64_flip_share = float(flip.double().mean())
-    del d64, keep
+    # against float64 outside the cells whose class flips between f32 and
+    # float64 (counted); everywhere else the <=1 LSB contract is held
+    f64, f64_flipped_max, f64_flip_share = e_vs_float64(
+        adf, words.view(torch.uint8).reshape(ad_shape), ad_dev[2:3],
+        cls_full, wts_e, 4)
     class_share = [float((cls_full == k).double().mean()) for k in range(3)]
     del words, batch_ad
     b_row, b_colt, left_f = banded._bands("bicubic", *HD, 4, -0.5, 3, dev,
@@ -1661,6 +1695,58 @@ def main() -> int:
                              "versions at the full frame")
     e_err, f_err = max(e_err, worst_e[0]), max(f_err, f_plain[0])
     del out_f
+    torch.cuda.empty_cache()
+
+    # 5c'. a gray frame on the adaptive path: Upscaler(method="adaptive") at
+    # 1080x1920x1 -> 4x, kernel E once; the other 31 gray frames and 16
+    # two-channel frames are the rotated inputs of its times below
+    rng = np.random.default_rng(24)
+    gray_dev = torch.from_numpy(all_class_frames(rng, 32, *HD, 1)).to(dev)
+    two_dev = torch.from_numpy(all_class_frames(rng, 16, *HD, 2)).to(dev)
+    gray0 = gray_dev[0].cpu().numpy()
+    zero_counts()
+    gray_out = up_ad(gray0)
+    torch.cuda.synchronize()
+    launches_gray = read_counts()
+    emit({"phase": "adaptive_gray_path", "frame": [*HD, 1], "scale": 4,
+          "requests_fetched": 1, "launches": launches_gray})
+    if launches_gray != {**{k: 0 for k in wrappers},
+                         "adaptive_resize_fused": 1}:
+        raise AssertionError(f"the gray frame did not run kernel E once: "
+                             f"{launches_gray}")
+    if (gray_out.shape != (HD[0] * 4, HD[1] * 4, 1)
+            or gray_out.dtype != np.uint8 or gray_out[::8, ::8].std() == 0):
+        raise AssertionError(f"bad gray output {gray_out.shape} "
+                             f"{gray_out.dtype}")
+    gray_got = torch.from_numpy(gray_out).to(dev)
+    del gray_out
+    gray_plain = diff_u8(gray_got, adf.adaptive_resize_reference(
+        gray_dev[:1], *wts_e, 4)[0])
+    cls_gray = torch.empty((1, *HD), dtype=torch.uint8, device=dev)
+    adf.adaptive_resize_fused(gray_dev[:1], 4, classes_out=cls_gray)
+    gray_cls_diff = float((cls_gray != region_classes(luma_bt709(
+        gray_dev[:1].float()))).double().mean())
+    gray_f64, gray_flipped_max, gray_flip_share = e_vs_float64(
+        adf, gray_got, gray_dev[:1], cls_gray, wts_e, 4)
+    gray_share = [float((cls_gray == k).double().mean()) for k in range(3)]
+    cls_two = region_classes(luma_bt709(two_dev[:1].float()))
+    two_share = [float((cls_two == k).double().mean()) for k in range(3)]
+    del gray_got, cls_two
+    emit({"phase": "adaptive_gray_path_check",
+          "kernel_e_vs_plain_max": gray_plain[0],
+          "kernel_e_vs_plain_share": gray_plain[1],
+          "kernel_e_vs_float64_max": gray_f64[0],
+          "kernel_e_vs_float64_share": gray_f64[1],
+          "class_f32_vs_float64_flip_share": gray_flip_share,
+          "kernel_e_vs_float64_max_in_flipped_cells": gray_flipped_max,
+          "kernel_e_class_diff_share": gray_cls_diff,
+          "share_texture_flat_edge": gray_share})
+    if (max(gray_plain[0], gray_f64[0]) > 1
+            or max(gray_plain[1], gray_f64[1]) >= 1e-3
+            or gray_cls_diff != 0.0 or gray_flip_share >= 1e-4):
+        raise AssertionError("the gray frame disagrees with kernel E's "
+                             "plain versions")
+    e_err = max(e_err, gray_plain[0])
     torch.cuda.empty_cache()
 
     # 5d. the band-sharded learned path: learned_resize_spatial_sharded on
@@ -1943,6 +2029,11 @@ def main() -> int:
         x, 4, weight_cache=wc_e, layout="planar"), e_in)
     run_e_opaque = rotating(lambda x: adf.adaptive_resize_fused(
         x, 4, weight_cache=wc_e, opaque_alpha=True), e_in)
+    # gray and two-channel frames, 66 MB of input each way round
+    run_e_gray = rotating(lambda x: adf.adaptive_resize_fused(
+        x, 4, weight_cache=wc_e), [(gray_dev[i:i + 1],) for i in range(32)])
+    run_e_two = rotating(lambda x: adf.adaptive_resize_fused(
+        x, 4, weight_cache=wc_e), [(two_dev[i:i + 1],) for i in range(16)])
     run_e_plain = rotating(lambda x: adf.adaptive_resize_reference(
         x, *wts_e, 4), e_in)
     run_e_graph = rotating(lambda x: adaptive_resize(x[0], 4, impl="jnp"),
@@ -1956,6 +2047,8 @@ def main() -> int:
     e_ms = device_ms(run_e, kernel="adaptive_kernel")
     e_planar_ms = device_ms(run_e_planar, kernel="adaptive_kernel")
     e_opaque_ms = device_ms(run_e_opaque, kernel="adaptive_kernel")
+    e_gray_ms = device_ms(run_e_gray, kernel="adaptive_kernel")
+    e_two_ms = device_ms(run_e_two, kernel="adaptive_kernel")
     f_ms = device_ms(run_f, kernel="resize_banded_kernel")
     e_plain = device_ms(run_e_plain, n=2, warmup=1)
     e_graph = device_ms(run_e_graph, n=2, warmup=1)
@@ -1963,6 +2056,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     e_bound, e_by, e_bytes, e_flops = adaptive_bound(1, *HD, 4, 4,
                                                      class_share[0])
+    e_gray_bound = adaptive_bound(1, *HD, 1, 4, gray_share[0])
+    e_two_bound = adaptive_bound(1, *HD, 2, 4, two_share[0])
+    del gray_dev, two_dev
     # kernel F's tensor-core products as launched on this frame, beside its
     # bytes bound (its function's bound is resize_bound's)
     f_ops = next(iter(wc_f.values()))
@@ -1976,6 +2072,16 @@ def main() -> int:
           "adaptive_resize_fused_ms": e_ms,
           "adaptive_resize_fused_planar_ms": e_planar_ms,
           "adaptive_resize_fused_opaque_alpha_ms": e_opaque_ms,
+          "gray": {"frame": [*HD, 1], "adaptive_resize_fused_ms": e_gray_ms,
+                   "bound_ms": e_gray_bound[0], "bound_by": e_gray_bound[1],
+                   "bytes": e_gray_bound[2], "flops": e_gray_bound[3],
+                   "share_texture_flat_edge": gray_share},
+          "two_channel": {"frame": [*HD, 2],
+                          "adaptive_resize_fused_ms": e_two_ms,
+                          "bound_ms": e_two_bound[0],
+                          "bound_by": e_two_bound[1],
+                          "bytes": e_two_bound[2], "flops": e_two_bound[3],
+                          "share_texture_flat_edge": two_share},
           "adaptive_resize_fused_plain_ms_no_yardstick": e_plain,
           "adaptive_plain_graph_ms_no_yardstick": e_graph,
           "resize_banded_ms": f_ms,
@@ -2127,21 +2233,6 @@ def main() -> int:
     # kernels may launch)
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         super_resolve_direct)
-    wrappers = {"packed_tail_fused": pt.packed_tail_fused,
-                "packed_tail": pt.packed_tail,
-                "interleave_planar_u32": ilv.interleave_planar_u32,
-                "resize_mxu": mxu.resize_mxu,
-                "resize_phase": phase.resize_phase,
-                "adaptive_resize_fused": adf.adaptive_resize_fused,
-                "resize_banded": banded.resize_banded}
-
-    def zero_counts():
-        for fn in wrappers.values():
-            fn.launches = 0
-
-    def read_counts():
-        return {k: fn.launches for k, fn in wrappers.items()}
-
     torch.cuda.empty_cache()
     crops = [f[:48, :64] for f in frames[:4]]
     direct_ups = {}
@@ -2322,7 +2413,8 @@ def main() -> int:
          "source": "bicubic_interpolation_model_tpu_torch/csrc/adaptive.cu",
          "replaces": "bicubic_interpolation_model_tpu/ops/"
                      "pallas_adaptive.py:105",
-         "launches": launches_ef["adaptive_resize_fused"],
+         "launches": launches_ef["adaptive_resize_fused"]
+         + launches_gray["adaptive_resize_fused"],
          "max_abs_err": e_err, "ms": e_ms, "plain_ms": e_plain,
          "bound_ms": e_bound, "bound_by": e_by, "library_ms": None},
         {"name": "resize_banded", "route": "cuda",

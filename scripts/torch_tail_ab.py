@@ -27,7 +27,9 @@ profiler trace of 20 launches, inputs rotated over copies larger than the
 L2) at the main paths' shapes: kernel A at 348x510 RGBA with f32 and bf16
 features, kernel G on the whole 348x510 frame (f32 and bf16 maps) and on one
 band of 4 (87 rows, ``halo="rows"``), kernel E at 1080x1920 RGBA frames of
-all three region classes -> 4x in the hwc, planar and opaque-alpha layouts,
+all three region classes -> 4x in the hwc, planar and opaque-alpha layouts
+and on their RGB channels (with whether the two revisions give the same
+bytes on two frames: where E's arithmetic did not change they must),
 kernel C at 1080x1920 RGBA -> 4x and 2.5x bicubic, kernel D (hwc and
 planar) and F at 1080x1920 RGBA -> 4x bicubic. Where a kernel's source
 did not change, its two revisions are the same code and their readings show
@@ -233,16 +235,19 @@ def main() -> int:
             for f in cs.all_class_frames(rng, 8, *cs.HD, 4)]
     c_in = [(torch.from_numpy(f[None]).to(dev),)
             for f in cs.u8_frames(rng, 8, *cs.HD, 4)]
+    e_rgb = [(x[..., :3].contiguous(),) for (x,) in e_in]
     wts_e = adf._weights(*cs.HD, 4, -0.5, dev, None)
-    for layout, opaque in (("hwc", False), ("planar", False), ("hwc", True)):
+    for layout, opaque, ins in (("hwc", False, e_in), ("planar", False, e_in),
+                                ("hwc", True, e_in), ("hwc", False, e_rgb)):
         name = "e_" + ("opaque_alpha" if opaque else layout)
+        name += "_rgb" if ins is e_rgb else ""
         cases[name] = (
             lambda x, layout=layout, opaque=opaque: adf.adaptive_resize_fused(
                 x, 4, layout=layout, opaque_alpha=opaque),
             lambda x, layout=layout, opaque=opaque:
                 adf.adaptive_resize_reference(x, *wts_e, 4, layout=layout,
                                               opaque_alpha=opaque),
-            e_in, 1)
+            ins, 1)
         kernel_of[name] = "adaptive_kernel"
     c_runs = {}
     for scale in (4, 2.5):
@@ -286,6 +291,7 @@ def main() -> int:
             return parent_runs[name]
         return cases[name][0]
 
+    outs: dict = {}
     for rev in ("parent", "change"):
         build._lib = libs[rev]
         for name, (_, plain, inputs, tol) in cases.items():
@@ -297,6 +303,15 @@ def main() -> int:
                      "max": mx, "share": share})
             if mx > tol or (tol == 1 and share >= 1e-3):
                 raise AssertionError(f"{rev} {name}: {mx} LSB, share {share}")
+            if name.startswith("e_"):
+                outs.setdefault(name, []).append(
+                    [runner(rev, name)(*x) for x in inputs[:2]])
+    for name, (parent_out, change_out) in outs.items():
+        same = all(torch.equal(p.view(torch.uint8), c.view(torch.uint8))
+                   for p, c in zip(parent_out, change_out))
+        cs.emit({"phase": "same_bytes", "case": name, "frames": 2,
+                 "equal": same})
+    del outs
     ms: dict = {}
     for rev in ("parent", "change", "change", "parent"):
         build._lib = libs[rev]

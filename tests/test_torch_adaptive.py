@@ -172,23 +172,29 @@ def test_serving_layout_is_hwc_off_the_card():
 
 
 def test_more_than_four_channels_take_the_plain_graph():
+    """C = 5 takes the plain graph, and the kernel's route refuses it, as
+    the JAX Pallas wrapper does; C = 2, which reads its second channel for
+    the luma's third, takes both routes and gives the JAX package's frame
+    (tests/test_torch_adaptive_gray.py holds C = 1 and 2 in full)."""
     rng = np.random.default_rng(15)
     img = rng.integers(0, 256, (7, 9, 5), dtype=np.uint8)
     got = adaptive_resize(img, 2, device="cpu").numpy()
     assert _max_diff(got, adaptive_bicubic_oracle(img, 2.0)) <= 1
-    with pytest.raises(ValueError, match="3 or 4 channels"):
+    with pytest.raises(ValueError, match="1 to 4 channels"):
         adaptive_resize(img, 2, impl="pallas", device="cpu")
-    with pytest.raises(ValueError, match="3 or 4 channels"):
-        adaptive_resize(img[..., :2], 2, impl="pallas", device="cpu")
-    with pytest.raises(IndexError):              # the luma needs RGB
-        adaptive_resize(img[..., :2], 2, device="cpu")
+    want = np.asarray(jadaptive.adaptive_resize(img[..., :2], 2, impl="jnp"))
+    for impl in ("auto", "jnp", "pallas"):
+        two = adaptive_resize(img[..., :2], 2, impl=impl, device="cpu")
+        assert two.shape == (14, 18, 2)
+        assert _max_diff(two.numpy(), want) <= 1, impl
 
 
 def test_fused_takes_every_integer_scale():
     assert tfused.fused_takes(4, 4) and tfused.fused_takes(1, 3)
     assert tfused.fused_takes(15, 3) and tfused.fused_takes(300, 4)
+    assert tfused.fused_takes(4, 1) and tfused.fused_takes(17, 2)
     assert not tfused.fused_takes(2.5, 4) and not tfused.fused_takes(0, 4)
-    assert not tfused.fused_takes(4, 5) and not tfused.fused_takes(4, 2)
+    assert not tfused.fused_takes(4, 5) and not tfused.fused_takes(4, 0)
     img = all_class_frame("mosaic", 4, 5, 3)
     # the kernel's route has no scale limit (<= 1 LSB from the oracle)
     big = tfused.adaptive_resize_fused(img, 15, device="cpu").numpy()

@@ -17,8 +17,8 @@ a*b+c to FMA, PyTorch does not; kernel C sums each output's taps in input
 order from its bands) with a share of differing bytes < 1e-3, and ≤1 LSB
 from the plain versions at float64; ``nearest`` bit-equal; float inputs
 within 1e-3 absolute on a 0-255 range; kernel F the same as C and D; kernel
-E ≤1 u8 LSB from its plain version at f32 and float64 with a share of
-differing bytes < 1e-3 (its sums factored per centre variant, FMA
+E (1 to 4 channels) ≤1 u8 LSB from its plain version at f32 and float64
+with a share of differing bytes < 1e-3 (its sums factored per centre variant, FMA
 contraction, approximate ``ex2`` and reciprocal against ``torch.exp`` and a
 division) and the same region class at every pixel (its variance stage is
 written without contraction in the plain version's order of summation).
@@ -542,6 +542,80 @@ def test_kernel_e_full_frame_and_staging_passes_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 15])
+@pytest.mark.parametrize("c", [1, 2])
+def test_kernel_e_gray_and_two_channel_frames_on_card(cuda, c, s):
+    """Kernel E at C = 1 and 2: rows of w*s*C bytes that are not whole
+    words (37 and 41 columns), classes equal to the plain version's at
+    every pixel, the planar words' bytes above C zero; at s = 15 the tile
+    is staged in passes, and a bound on the staged phases makes s = 4 take
+    them too."""
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        luma_bt709, region_classes)
+    for h, w in [(13, 37), (24, 70), (19, 41)]:
+        img = _all_class_frames(h + s + c, 3, h, w, c, cuda)
+        cache = {}
+        cls = torch.empty((3, h, w), dtype=torch.uint8, device=cuda)
+        before = adf.adaptive_resize_fused.launches
+        got = adf.adaptive_resize_fused(img, s, weight_cache=cache,
+                                        classes_out=cls)
+        assert adf.adaptive_resize_fused.launches == before + 1
+        assert got.shape == (3, h * s, w * s, c) and got.dtype == torch.uint8
+        assert float(got.float().std()) > 0
+        wts = next(iter(cache.values()))
+        assert torch.equal(cls, region_classes(luma_bt709(img.float())))
+        assert len(torch.unique(cls)) == 3 or h * w < 1000
+        mx, share = _diff_u8(got, adf.adaptive_resize_reference(img, *wts, s))
+        assert mx <= 1 and share < 1e-3
+        mx64, share64 = _diff_u8(got, adf.adaptive_resize_reference(
+            img, *wts, s, dtype=torch.float64))
+        assert mx64 <= 1 and share64 < 1e-3
+        for i in range(3):
+            assert torch.equal(got[i], adf.adaptive_resize_fused(img[i], s))
+        planar = adf.adaptive_resize_fused(img, s, layout="planar")
+        assert planar.shape == (3, s, h * s, w)
+        assert torch.equal(adf.unpack_planar(planar, h, w, s, c), got)
+        assert not planar.view(torch.uint8).reshape(-1, 4)[:, c:].any()
+        with pytest.raises(ValueError, match="4 channels"):
+            adf.adaptive_resize_fused(img, s, layout="hwc32")
+        if s == 4:
+            for stage in (5, 2):
+                assert torch.equal(
+                    adf.adaptive_resize_fused(img, s, stage_phases=stage), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2])
+def test_adaptive_routes_gray_and_two_channel_frames_to_kernel_e_on_card(
+        cuda, c):
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        adaptive_resize, adaptive_resize_batch)
+    from bicubic_interpolation_model_tpu_torch.serving import Upscaler
+    frames = _all_class_frames(40 + c, 3, 20, 27, c).numpy()
+    img = frames[0]
+    e0 = adf.adaptive_resize_fused.launches
+    out = adaptive_resize(img, 4)
+    assert out.is_cuda and out.shape == (80, 108, c)
+    assert adf.adaptive_resize_fused.launches == e0 + 1
+    assert _diff_u8(out, adaptive_resize(img, 4, impl="jnp"))[0] <= 1
+    assert torch.equal(adaptive_resize(img, 4, impl="pallas"), out)
+    assert adf.adaptive_resize_fused.launches == e0 + 2    # jnp: the graph
+    # the Upscaler: one launch per frame by __call__ and stream, one per
+    # batch; frames of fewer than 4 channels stay bytes without the fetch
+    up = Upscaler(scale=4, method="adaptive")
+    dev = up(img, fetch=False)
+    assert dev.dtype == torch.uint8 and torch.equal(dev, out)
+    np.testing.assert_array_equal(up(img), out.cpu().numpy())
+    streamed = list(up.stream(list(frames)))
+    b = up.batch(frames)
+    assert b.shape == (3, 80, 108, c)
+    assert adf.adaptive_resize_fused.launches == e0 + 2 + 2 + 3 + 1
+    for k in range(3):
+        np.testing.assert_array_equal(streamed[k], b[k])
+    assert torch.equal(adaptive_resize_batch(frames, 4)[0], out)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("s", [1, 2, 3, 4])
 def test_kernel_f_matches_plain_on_card(cuda, method, s):
@@ -609,7 +683,7 @@ def test_adaptive_and_banded_route_to_the_kernels_on_card(cuda):
     assert adaptive_resize(img[:4, :4], 15).shape == (60, 60, 4)
     assert adf.adaptive_resize_fused.launches == e0 + 1
     e0 += 1
-    with pytest.raises(ValueError, match="3 or 4 channels"):
+    with pytest.raises(ValueError, match="1 to 4 channels"):
         adaptive_resize(five, 2, impl="pallas")
     # the Upscaler: words without the fetch, bytes with it, one launch per
     # frame by __call__ and stream, one per batch
