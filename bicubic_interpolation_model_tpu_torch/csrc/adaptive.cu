@@ -58,6 +58,24 @@
 // taps in registers. The variance stage uses only correctly rounded
 // intrinsics (no FMA contraction) in the plain version's order of
 // summation, so both agree on every class.
+//
+// Probes (PROBE != FULL, one pass, bim_adaptive_probe): the same grid,
+// windows, classes, staging and stores with the law replaced or the
+// exemption dropped, for dividing the kernel's time between its stages
+// (scripts/torch_adaptive_probe_lab.py and torch_adaptive_lab.py; the TPU
+// labs are scripts/adaptive_probe_lab.py and adaptive_lab.py ablate):
+//   LAW_SCRATCH  F = fmaf(tap luma, 0, 1) = 1: the 16 tap lumas still come
+//                from shared memory, the law's arithmetic goes
+//   LAW_CONST    F = 1 (nvcc folds the products by F), the exemption kept
+//   FMA_ONLY     F = 1 and no exemption: the factored 16-tap sum alone
+//   NOLAW        F = (centre luma + 1024) - tap luma: one subtract per tap
+//                (the bias, added once per centre, keeps every weight
+//                positive, so the sums stay well conditioned)
+//   NOEQ         the law kept, the exemption dropped
+// The exemption is the kernel's factored term of texture centres, (1 -
+// F(0)) * pix_c * sum(wye) * sum(wxe), whichever F the probe takes. The
+// production instances are PROBE = FULL, whose code the probes leave as it
+// was.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +96,9 @@ constexpr int FIXED_WORDS = (2 * WIN_X * WIN_Y + CEN_X * CEN_Y + 3) & ~3;
 constexpr float TEXTURE_CENTRE = 1.f - (0.8f + 0.4f);
 
 __host__ __device__ constexpr int padded(int col) { return col + (col >> 5); }
+
+// probe instances (see the header); FULL is the production kernel
+enum Probe { FULL = 0, LAW_SCRATCH = 1, LAW_CONST = 2, FMA_ONLY = 3, NOLAW = 4, NOEQ = 5 };
 
 // shared-memory words of a pass over qn row phases x pn column phases:
 // windows and classes, the pass's weights, the padded output tile
@@ -133,13 +154,15 @@ __device__ void stage_weights(const float* wy, const float* wye, const float* wx
 
 // PASSES: the tile is staged in several passes (qn x pn phases each);
 // without it one pass stages all s x s phases (qn = pn = s).
-template <int C, bool OPAQUE, bool PASSES>
+template <int C, bool OPAQUE, bool PASSES, int PROBE = FULL>
 __global__ void __launch_bounds__(THREADS, 2)
 adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
                 const float* __restrict__ wye, const float* __restrict__ wx,
                 uint8_t* __restrict__ out, uint8_t* __restrict__ classes, int h, int w, int s,
                 int qn, int pn, int planar) {
   constexpr int NC = OPAQUE ? 3 : C;  // channels that are summed
+  constexpr bool LAW = PROBE == FULL || PROBE == NOEQ;
+  constexpr bool EQ = PROBE != FMA_ONLY && PROBE != NOEQ;
   extern __shared__ uint4 smem_raw[];
   uint32_t* smem = reinterpret_cast<uint32_t*>(smem_raw);
   uint32_t* s_pix = smem;                                          // [WIN_Y][WIN_X] packed
@@ -244,7 +267,24 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
             const int cls = s_cls[(ly + cy) * CEN_X + lx + cx];
             const bool texture = cls == 0;
             float f[4][4];
-            if (texture) {
+            if constexpr (PROBE == LAW_SCRATCH) {
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int m = 0; m < 4; ++m)
+                  f[n][m] = fmaf(s_lum[(ly + 1 + n) * WIN_X + lx + 1 + m], 0.f, 1.f);
+            } else if constexpr (PROBE == NOLAW) {
+              const float cb = cl + 1024.f;
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int m = 0; m < 4; ++m) f[n][m] = cb - s_lum[(ly + 1 + n) * WIN_X + lx + 1 + m];
+            } else if constexpr (!LAW) {
+#pragma unroll
+              for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int m = 0; m < 4; ++m) f[n][m] = 1.f;
+            } else if (texture) {
 #pragma unroll
               for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -284,7 +324,7 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
                 }
               }
               float tq = 0.f;
-              if (texture) {
+              if (EQ && texture) {
                 const float4 we = *reinterpret_cast<const float4*>(s_wye + qr);
                 tq = TEXTURE_CENTRE * (((we.x + we.y) + we.z) + we.w);
               }
@@ -304,7 +344,7 @@ adaptive_kernel(const uint8_t* __restrict__ in, const float* __restrict__ wy,
 #pragma unroll
                   for (int ch = 0; ch < NC; ++ch) acc[ch] = fmaf(wm, u[m][ch], acc[ch]);
                 }
-                if (texture) {   // the exemption of the centre tap
+                if (EQ && texture) {   // the exemption of the centre tap
                   const float* wxe_p = s_wxe + (p - p0) * 4 * TX + lx;
                   const float t = tq * (((wxe_p[0] + wxe_p[TX]) + wxe_p[2 * TX]) + wxe_p[3 * TX]);
                   wsum += t;
@@ -412,6 +452,43 @@ int launch_passes(const uint8_t* in, const float* wy, const float* wye, const fl
   return (int)cudaGetLastError();
 }
 
+// one pass of all s x s phases: the probe instances (PASSES = false)
+template <int C, int PROBE>
+int launch_probe(const uint8_t* in, const float* wy, const float* wye, const float* wx,
+                 uint8_t* out, uint8_t* classes, int b, int h, int w, int s, int planar,
+                 cudaStream_t st) {
+  if (pass_words(s, s) * sizeof(uint32_t) > (size_t)SMEM_MAX) return -1;
+  const size_t smem = sizeof(uint32_t) * pass_words(s, s);
+  auto kern = adaptive_kernel<C, false, false, PROBE>;
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((w + TX - 1) / TX, (h + TY - 1) / TY, b);
+  kern<<<grid, THREADS, smem, st>>>(in, wy, wye, wx, out, classes, h, w, s, s, s, planar);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_probe_c(const uint8_t* in, const float* wy, const float* wye, const float* wx,
+                   uint8_t* out, uint8_t* classes, int b, int h, int w, int s, int planar,
+                   int probe, cudaStream_t st) {
+  switch (probe) {
+    case LAW_SCRATCH:
+      return launch_probe<C, LAW_SCRATCH>(in, wy, wye, wx, out, classes, b, h, w, s, planar, st);
+    case LAW_CONST:
+      return launch_probe<C, LAW_CONST>(in, wy, wye, wx, out, classes, b, h, w, s, planar, st);
+    case FMA_ONLY:
+      return launch_probe<C, FMA_ONLY>(in, wy, wye, wx, out, classes, b, h, w, s, planar, st);
+    case NOLAW:
+      return launch_probe<C, NOLAW>(in, wy, wye, wx, out, classes, b, h, w, s, planar, st);
+    case NOEQ:
+      return launch_probe<C, NOEQ>(in, wy, wye, wx, out, classes, b, h, w, s, planar, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int C, bool OPAQUE>
 int launch(const uint8_t* in, const float* wy, const float* wye, const float* wx, uint8_t* out,
            uint8_t* classes, int b, int h, int w, int s, int planar, int stage, cudaStream_t st) {
@@ -458,5 +535,22 @@ extern "C" int bim_adaptive_resize(const uint8_t* in, const float* wy, const flo
   if (c == 3) return launch<3, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
   if (c == 2) return launch<2, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
   if (c == 1) return launch<1, false>(in, wy, wye, wx, out, classes, b, h, w, s, planar, stage, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The probe instances of the header: in, wy, wye, wx, out, classes, b, h,
+// w, s, planar as bim_adaptive_resize, c = 1 or 4 (no opaque alpha), probe
+// 1 to 5 (LAW_SCRATCH, LAW_CONST, FMA_ONLY, NOLAW, NOEQ). Returns -1 when
+// the s x s tile does not fit shared memory in one pass (s > 14; nothing is
+// launched), cudaErrorInvalidValue for another c or probe, else
+// cudaGetLastError() after the launch.
+extern "C" int bim_adaptive_probe(const uint8_t* in, const float* wy, const float* wye,
+                                  const float* wx, uint8_t* out, uint8_t* classes, int b, int h,
+                                  int w, int c, int s, int planar, int probe, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c == 4)
+    return launch_probe_c<4>(in, wy, wye, wx, out, classes, b, h, w, s, planar, probe, st);
+  if (c == 1)
+    return launch_probe_c<1>(in, wy, wye, wx, out, classes, b, h, w, s, planar, probe, st);
   return (int)cudaErrorInvalidValue;
 }

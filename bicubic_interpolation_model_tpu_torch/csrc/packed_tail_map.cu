@@ -59,6 +59,22 @@
 //
 // bf16 maps: the wrapper rounds conv_out's kernel to bf16; one bf16 MMA
 // pass with f32 accumulation, as the TPU kernel's matmuls run in m.dtype.
+//
+// Probes (PROBE != FULL, bim_packed_tail_map_probe): the same grid, ring,
+// MMAs and stores with the stages after the products cut back to front,
+// for dividing the kernel's time between its stages
+// (scripts/torch_packed_tail_lab.py; the TPU lab is
+// scripts/packed_tail_lab.py _probe_tail). Each writes a reduction of its
+// last live stage where the full kernel writes the pixel's word, so that
+// nvcc keeps the work:
+//   MATMUL  the sum of the 16 conv_out values (bias included), f32 bits
+//   TANH    the sum of their tanh, f32 bits
+//   APPLY   channel 0's 16-tap apply, rounded and clipped (byte 0)
+// The TPU lab's `relayout` stage (the weights moved from the matmul's
+// layout to the apply's) has no counterpart: the apply here reads the
+// weights in the MMA fragments' own layout and reduces over the quad, so
+// the lab's `relayout` row is the TANH instance. The production instances
+// are PROBE = FULL, whose code the probes leave as it was.
 
 #include "tail_mma.cuh"
 
@@ -76,6 +92,9 @@ constexpr int NSLOT = 4;                // ring of map rows
 constexpr int WARPS = 16;               // = output phases
 constexpr int THREADS = 32 * WARPS;
 
+// probe instances (see the header); FULL is the production kernel
+enum Probe { FULL = 0, MATMUL = 1, TANH = 2, APPLY = 3 };
+
 // shared-memory layout in 32-bit words
 template <bool BF16>
 struct Layout {
@@ -92,7 +111,7 @@ struct Layout {
   static_assert(SLOT % 4 == 0, "16-byte stages");
 };
 
-template <bool BF16, typename MT>
+template <bool BF16, typename MT, int PROBE = FULL>
 __global__ void __launch_bounds__(THREADS, 1)
 packed_tail_map_kernel(const MT* __restrict__ m, const float* __restrict__ lr,
                        const float* __restrict__ kout,
@@ -192,16 +211,23 @@ packed_tail_map_kernel(const MT* __restrict__ m, const float* __restrict__ lr,
       rowoff[k] = min(max(yy - 1 + k + off, 0), lr_rows - 1) * w * c;
     const int gx0 = x0 + g;
     uint32_t* orow = out + ((size_t)q * (h * S) + (size_t)yy * S + pp) * w;
-    apply_store(acc, lr, rowoff, gx0 - 1, 0, w - 1, c, n_ch, gx0 < w,
-                gx0 + 8 < w, orow + gx0, orow + gx0 + 8, lane);
+    if constexpr (PROBE == FULL)
+      apply_store(acc, lr, rowoff, gx0 - 1, 0, w - 1, c, n_ch, gx0 < w,
+                  gx0 + 8 < w, orow + gx0, orow + gx0 + 8, lane);
+    else if constexpr (PROBE == APPLY)
+      apply_store<1>(acc, lr, rowoff, gx0 - 1, 0, w - 1, c, 1, gx0 < w,
+                     gx0 + 8 < w, orow + gx0, orow + gx0 + 8, lane);
+    else
+      stage_sum_store<PROBE == TANH>(acc, gx0 < w, gx0 + 8 < w, orow + gx0,
+                                     orow + gx0 + 8, lane);
   }
 }
 
-template <bool BF16, typename MT>
+template <bool BF16, typename MT, int PROBE = FULL>
 int launch(const void* m, const float* lr, const float* kout,
            const float* bout, uint32_t* out, int h, int w, int c,
            int halo_rows, int opaque_alpha, cudaStream_t stream) {
-  auto kern = packed_tail_map_kernel<BF16, MT>;
+  auto kern = packed_tail_map_kernel<BF16, MT, PROBE>;
   constexpr size_t bytes = Layout<BF16>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -238,4 +264,40 @@ extern "C" int bim_packed_tail_map(const void* m, int m_bf16, const float* lr,
                                        halo_rows, opaque_alpha, st);
   return launch<false, float>(m, lr, kout, bout, out, h, w, c, halo_rows,
                               opaque_alpha, st);
+}
+
+template <int PROBE>
+int launch_probe(const void* m, int m_bf16, const float* lr,
+                 const float* kout, const float* bout, uint32_t* out, int h,
+                 int w, int c, int halo_rows, cudaStream_t st) {
+  if (m_bf16)
+    return launch<true, __nv_bfloat16, PROBE>(m, lr, kout, bout, out, h, w, c,
+                                              halo_rows, 0, st);
+  return launch<false, float, PROBE>(m, lr, kout, bout, out, h, w, c,
+                                     halo_rows, 0, st);
+}
+
+// The probe instances of the header: operands as bim_packed_tail_map (no
+// opaque alpha), probe 1 (MATMUL), 2 (TANH) or 3 (APPLY); out [4, 4h, w]
+// holds f32 bits (MATMUL, TANH) or u32 words. Returns
+// cudaErrorInvalidValue for another probe, else cudaGetLastError() after
+// the launch.
+extern "C" int bim_packed_tail_map_probe(const void* m, int m_bf16,
+                                         const float* lr, const float* kout,
+                                         const float* bout, uint32_t* out,
+                                         int h, int w, int c, int halo_rows,
+                                         int probe, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (probe) {
+    case MATMUL:
+      return launch_probe<MATMUL>(m, m_bf16, lr, kout, bout, out, h, w, c,
+                                  halo_rows, st);
+    case TANH:
+      return launch_probe<TANH>(m, m_bf16, lr, kout, bout, out, h, w, c,
+                                halo_rows, st);
+    case APPLY:
+      return launch_probe<APPLY>(m, m_bf16, lr, kout, bout, out, h, w, c,
+                                 halo_rows, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

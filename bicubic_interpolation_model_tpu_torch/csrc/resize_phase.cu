@@ -38,6 +38,17 @@
 //   float-to-int conversions.
 // Offsets are 64-bit; a pixel's value does not depend on its tile, so a
 // batch equals its single frames.
+//
+// Probes (PROBE != FULL, u8 RGBA only, bim_resize_phase_probe): the same
+// grid, staging and stores with one stage turned off or replaced, for
+// dividing the kernel's time between its stages (scripts/torch_kernel_lab.py;
+// the TPU labs are scripts/kernel_lab.py kernel_rowonly, kernel_null and
+// kernel_vP). ROWONLY keeps the row pass and stores tmp at each LR column's
+// first tap (input column X - left) for all s column phases, with no column
+// FMA; NUL skips the row pass and stores each LR pixel over its s x s block
+// from the widened window (nearest); CHW is the full kernel with a
+// channel-planar store [b][c][h*s][w*s]. The production instances are
+// PROBE = FULL, whose code the probes leave as it was.
 
 #include "resize_common.cuh"
 
@@ -47,6 +58,9 @@ constexpr int TILE_R = 16;   // LR rows per tile (TILE_R / 2 where those do not 
 constexpr int TILE_X = 32;   // LR columns per tile
 constexpr int PH = 4;        // phases per phase group, both passes
 constexpr int ROWS = 2;      // output rows per item in the column pass
+
+// probe instances (see the header); FULL is the production kernel
+enum Probe { FULL = 0, ROWONLY = 1, NUL = 2, CHW = 3 };
 
 // shared memory of one block, in bytes; every part starts 16-byte aligned
 struct Layout {
@@ -109,7 +123,7 @@ __device__ void issue_tile(int tile, const Geometry& g, const Layout& L, const T
   cp_async_commit();
 }
 
-template <int C, bool U8, bool PLANAR>
+template <int C, bool U8, bool PLANAR, int PROBE = FULL>
 __global__ void __launch_bounds__(THREADS, 3)
 resize_phase_kernel(const typename Elem<U8>::type* __restrict__ in,
                     const float* __restrict__ wrow, const float* __restrict__ wcol,
@@ -147,30 +161,32 @@ resize_phase_kernel(const typename Elem<U8>::type* __restrict__ in,
       issue_tile<C>(next, g, L, in, wrow, wcol, raw, stages + ((it + 1) & 1) * stage_floats);
 
     // row pass: an item is 4 row phases of one LR row x 4 window elements
-    for (int e = tid; e < g.tr * pg * n4; e += THREADS) {
-      const int j4 = (e % n4) << 2, rest = e / n4;
-      const int gq = pg == 1 ? 0 : rest % pg, r = pg == 1 ? rest : rest / pg;
-      const float* col = s_in + (size_t)r * wxc4 + j4;
-      const float* wv = s_wr + (size_t)(r * pg + gq) * taps * PH;
-      float4 acc[PH];
+    if constexpr (PROBE != NUL) {
+      for (int e = tid; e < g.tr * pg * n4; e += THREADS) {
+        const int j4 = (e % n4) << 2, rest = e / n4;
+        const int gq = pg == 1 ? 0 : rest % pg, r = pg == 1 ? rest : rest / pg;
+        const float* col = s_in + (size_t)r * wxc4 + j4;
+        const float* wv = s_wr + (size_t)(r * pg + gq) * taps * PH;
+        float4 acc[PH];
 #pragma unroll
-      for (int i = 0; i < PH; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < taps; ++k) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wv + k * PH);
-        const float4 v = *reinterpret_cast<const float4*>(col + (size_t)k * wxc4);
-        const float wk[PH] = {w4.x, w4.y, w4.z, w4.w};
+        for (int i = 0; i < PH; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int k = 0; k < taps; ++k) {
+          const float4 w4 = *reinterpret_cast<const float4*>(wv + k * PH);
+          const float4 v = *reinterpret_cast<const float4*>(col + (size_t)k * wxc4);
+          const float wk[PH] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int i = 0; i < PH; ++i) {
+            acc[i].x = fmaf(wk[i], v.x, acc[i].x);
+            acc[i].y = fmaf(wk[i], v.y, acc[i].y);
+            acc[i].z = fmaf(wk[i], v.z, acc[i].z);
+            acc[i].w = fmaf(wk[i], v.w, acc[i].w);
+          }
+        }
 #pragma unroll
         for (int i = 0; i < PH; ++i) {
-          acc[i].x = fmaf(wk[i], v.x, acc[i].x);
-          acc[i].y = fmaf(wk[i], v.y, acc[i].y);
-          acc[i].z = fmaf(wk[i], v.z, acc[i].z);
-          acc[i].w = fmaf(wk[i], v.w, acc[i].w);
+          const int q = gq * PH + i;
+          if (q < s) *reinterpret_cast<float4*>(s_tmp + (size_t)(r * s + q) * wxc4 + j4) = acc[i];
         }
-      }
-#pragma unroll
-      for (int i = 0; i < PH; ++i) {
-        const int q = gq * PH + i;
-        if (q < s) *reinterpret_cast<float4*>(s_tmp + (size_t)(r * s + q) * wxc4 + j4) = acc[i];
       }
     }
     __syncthreads();
@@ -192,17 +208,34 @@ resize_phase_kernel(const typename Elem<U8>::type* __restrict__ in,
           for (int ch = 0; ch < C; ++ch) acc[r][i][ch] = U8 ? 0.5f : 0.f;
       const float* tb = s_tmp + (size_t)rb * ROWS * wxc4 + xl * C;
       const float* wv = s_wc + ((size_t)gp * taps * TILE_X + xl) * PH;
-      for (int m = 0; m < taps; ++m) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wv + (size_t)m * TILE_X * PH);
-        const float wk[PH] = {w4.x, w4.y, w4.z, w4.w};
+      if constexpr (PROBE == ROWONLY || PROBE == NUL) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
+          // ROWONLY: tmp at window column xl; NUL: the LR pixel itself
+          const float* src =
+              PROBE == ROWONLY
+                  ? tb + (size_t)r * wxc4
+                  : s_in + (size_t)((rb * ROWS + r) / s + g.left) * wxc4 + (xl + g.left) * C;
           float v[C];
-          load_px<C>(tb + (size_t)r * wxc4 + m * C, v);
+          load_px<C>(src, v);
 #pragma unroll
           for (int i = 0; i < PH; ++i)
 #pragma unroll
-            for (int ch = 0; ch < C; ++ch) acc[r][i][ch] = fmaf(wk[i], v[ch], acc[r][i][ch]);
+            for (int ch = 0; ch < C; ++ch) acc[r][i][ch] += v[ch];
+        }
+      } else {
+        for (int m = 0; m < taps; ++m) {
+          const float4 w4 = *reinterpret_cast<const float4*>(wv + (size_t)m * TILE_X * PH);
+          const float wk[PH] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            float v[C];
+            load_px<C>(tb + (size_t)r * wxc4 + m * C, v);
+#pragma unroll
+            for (int i = 0; i < PH; ++i)
+#pragma unroll
+              for (int ch = 0; ch < C; ++ch) acc[r][i][ch] = fmaf(wk[i], v[ch], acc[r][i][ch]);
+          }
         }
       }
       const int np = min(PH, s - gp * PH);   // phases of this group in the image
@@ -210,7 +243,18 @@ resize_phase_kernel(const typename Elem<U8>::type* __restrict__ in,
       for (int r = 0; r < ROWS; ++r) {
         const int gr = r0 * s + rb * ROWS + r;
         if (gr >= ho) continue;
-        if constexpr (PLANAR) {
+        if constexpr (PROBE == CHW) {
+          // the group's phases of one LR column in each channel plane: np
+          // consecutive bytes per plane
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) {
+            uint32_t word[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int i = 0; i < PH; ++i) word[0] |= byte_bits(acc[r][i][ch]) << (8 * i);
+            store_bytes(out + ((t.b * C + ch) * ho + gr) * (size_t)wo + (size_t)gx * s + gp * PH,
+                        word, np);
+          }
+        } else if constexpr (PLANAR) {
           // one pixel per plane p, consecutive X on consecutive lanes
 #pragma unroll
           for (int i = 0; i < PH; ++i) {
@@ -261,7 +305,7 @@ resize_phase_kernel(const typename Elem<U8>::type* __restrict__ in,
   }
 }
 
-template <int C, bool U8, bool PLANAR>
+template <int C, bool U8, bool PLANAR, int PROBE = FULL>
 int launch(const void* in, const float* wrow, const float* wcol, void* out, Geometry g,
            cudaStream_t st) {
   using T = typename Elem<U8>::type;
@@ -270,7 +314,7 @@ int launch(const void* in, const float* wrow, const float* wcol, void* out, Geom
   if (layout(C, sizeof(T), g.s, g.taps, g.tr).total > SMEM_MAX) g.tr = TILE_R / 2;
   const Layout L = layout(C, sizeof(T), g.s, g.taps, g.tr);
   if (L.total > SMEM_MAX) return -1;
-  auto kern = resize_phase_kernel<C, U8, PLANAR>;
+  auto kern = resize_phase_kernel<C, U8, PLANAR, PROBE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L.total);
   if (err != cudaSuccess) return (int)err;
@@ -325,6 +369,30 @@ extern "C" int bim_resize_phase(const void* in, int in_u8, const float* wrow, co
     case 2: return launch_c<2>(in, u8, pl, wrow, wcol, out, g, st);
     case 3: return launch_c<3>(in, u8, pl, wrow, wcol, out, g, st);
     case 4: return launch_c<4>(in, u8, pl, wrow, wcol, out, g, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The probe instances of the header on u8 RGBA frames: in and out as
+// bim_resize_phase with in_u8 = 1 and c = 4; probe 1 (ROWONLY) and 2 (NUL)
+// in either layout, 3 (CHW) with planar = 0 writes u8 [b, 4, h*s, w*s].
+// Returns cudaErrorInvalidValue for another c or probe, else as
+// bim_resize_phase.
+extern "C" int bim_resize_phase_probe(const void* in, const float* wrow, const float* wcol,
+                                      void* out, int b, int h, int w, int c, int s, int taps,
+                                      int left, int planar, int probe, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Geometry g{b, h, w, s, taps, left, 0, 0, 0};
+  if (c != 4) return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case ROWONLY:
+      return planar ? launch<4, true, true, ROWONLY>(in, wrow, wcol, out, g, st)
+                    : launch<4, true, false, ROWONLY>(in, wrow, wcol, out, g, st);
+    case NUL:
+      return planar ? launch<4, true, true, NUL>(in, wrow, wcol, out, g, st)
+                    : launch<4, true, false, NUL>(in, wrow, wcol, out, g, st);
+    case CHW:
+      if (!planar) return launch<4, true, false, CHW>(in, wrow, wcol, out, g, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -199,7 +199,9 @@ __device__ __forceinline__ float acc_value(const Acc& acc, int nt, int r) {
 // col_lo, col_hi) + channel]: rowoff the offsets (in floats) of the 4
 // window rows, clamped by the caller. Lane t = 0 stores pixel g, lane t = 1
 // pixel g + 8, where store0 / store1 allow. All lanes of the warp must call
-// it (shuffles).
+// it (shuffles). NCH < 4 (kernel G's apply probe) sums and packs channels
+// below NCH only.
+template <int NCH = 4>
 __device__ __forceinline__ void apply_store(
     const Acc& acc, const float* lr, const int (&rowoff)[4], int col0,
     int col_lo, int col_hi, int c, int n_ch, bool store0, bool store1,
@@ -222,7 +224,7 @@ __device__ __forceinline__ void apply_store(
   // all channels' loads issued together (c <= 4), then the quad sums
   float s[2][4];
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch)
+  for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int px = 0; px < 2; ++px) {
       float v = 0.f;
@@ -238,7 +240,7 @@ __device__ __forceinline__ void apply_store(
     }
   uint32_t word[2] = {0u, 0u};
 #pragma unroll
-  for (int ch = 0; ch < 4; ++ch)
+  for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
     for (int px = 0; px < 2; ++px) {
       float v = s[px][ch];
@@ -250,6 +252,32 @@ __device__ __forceinline__ void apply_store(
     }
   if (t == 0 && store0) *out0 = word[0];
   if (t == 1 && store1) *out1 = word[1];
+}
+
+// Kernel G's stage probes: the sum of a pixel's 16 conv_out values (TANH:
+// after tanh) for the lane's two pixels, over the quad by two xor shuffles,
+// stored as f32 bits where apply_store stores the pixel's word. All lanes
+// of the warp must call it (shuffles).
+template <bool TANH>
+__device__ __forceinline__ void stage_sum_store(const Acc& acc, bool store0,
+                                                bool store1, uint32_t* out0,
+                                                uint32_t* out1, int lane) {
+  const int t = lane & 3;
+  float v[2];
+#pragma unroll
+  for (int px = 0; px < 2; ++px) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float x = acc_value(acc, k >> 1, 2 * px + (k & 1));
+      sum += TANH ? fast_tanh(x) : x;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    v[px] = sum;
+  }
+  if (t == 0 && store0) *out0 = __float_as_uint(v[0]);
+  if (t == 1 && store1) *out1 = __float_as_uint(v[1]);
 }
 
 // 16 bytes global -> shared without registers; src_ok = false fills zeros

@@ -24,6 +24,15 @@ bytes viewed as RGBA32 words, uint32 [.., H*S, W*S]; ``"planar"`` uint32
 ``(r, X*S + px)`` as little-endian bytes and 0 in the bytes above C (exact
 extents; the JAX form pads them to its tile grid, the valid region is the
 same). C is 1 to 4, as in the JAX kernel: a pixel packs into one word.
+
+:func:`adaptive_probe` launches the kernel's probe instances (C = 1 or 4,
+one pass): the same grid, windows, classes, staging and stores with the
+law replaced or the exemption dropped, for dividing the kernel's time
+between its stages (``bench/labs.py``). In the kernel's factored form a
+tap's weight is ``A * F + E * (1 - F(0))``, ``F(0)`` the law at the centre
+(1.2 for texture centres, 1 otherwise); the probes change ``F`` or drop
+the second term (``PROBES``). Their plain versions are
+:func:`adaptive_resize_reference`'s ``probe=``.
 """
 
 from __future__ import annotations
@@ -33,8 +42,20 @@ import torch
 
 from ..runtime import build
 from ..runtime.device import as_device_tensor
-from .adaptive import (EDGE, FLAT, _cubic_memo_np, _edge_pad, centre_offset,
-                       luma_bt709, region_classes)
+from .adaptive import (EDGE, FLAT, TEXTURE, _cubic_memo_np, _edge_pad,
+                       centre_offset, luma_bt709, region_classes)
+
+
+#: probe instances of the kernel and their ids in csrc/adaptive.cu:
+#: law_scratch F = 1 from the tap lumas in shared memory (one FMA each),
+#: law_const F = 1, fma_only F = 1 and no exemption term, nolaw F =
+#: (centre luma + 1024) - tap luma (one subtract), noeq the law without the
+#: exemption term
+PROBES = {"law_scratch": 1, "law_const": 2, "fma_only": 3, "nolaw": 4,
+          "noeq": 5}
+#: 1 - F(0) of a texture centre in f32, as csrc/adaptive.cu's
+#: TEXTURE_CENTRE
+_TEXTURE_CENTRE = float(np.float32(1.0) - (np.float32(0.8) + np.float32(0.4)))
 
 
 def fused_takes(scale, c: int) -> bool:
@@ -112,13 +133,23 @@ def adaptive_resize_reference(img_bhwc: torch.Tensor, wy: torch.Tensor,
                               wye: torch.Tensor, wx: torch.Tensor, s: int,
                               *, opaque_alpha: bool = False,
                               layout: str = "hwc",
-                              dtype: torch.dtype = torch.float32):
+                              dtype: torch.dtype = torch.float32,
+                              probe: str = "full"):
     """The plain PyTorch version of the kernel, step by step on tensors in
     ``dtype`` (``torch.float64`` is the oracle on the card): luma and
     classes, the 16 factor maps of each centre variant, then per output
     phase the 16 weights ``E + (A - E) * F`` summed tap by tap (rows outer),
     ``clip(int(acc * (1/wsum) + 0.5), 0, 255)``; the same layouts.
-    [B, H, W, C] uint8 with C in 1..4."""
+    [B, H, W, C] uint8 with C in 1..4.
+
+    ``probe`` gives a probe instance's plain version (module docstring):
+    the weights ``A * F + E * g``, with ``F`` = 1 (``law_scratch``,
+    ``law_const``, ``fma_only``), ``(centre luma + 1024) - tap luma``
+    (``nolaw``) or the law (``noeq``), and ``g`` = 1 - F(0) of the class
+    at texture centres and 0 elsewhere, or 0 everywhere (``fma_only``,
+    ``noeq``)."""
+    if probe not in ("full", *PROBES):
+        raise ValueError(f"unknown probe {probe!r}")
     b, h, w, c = img_bhwc.shape
     opaque = opaque_alpha and c == 4
     nc = 3 if opaque else c
@@ -148,13 +179,24 @@ def adaptive_resize_reference(img_bhwc: torch.Tensor, wy: torch.Tensor,
             f = [[None] * 4 for _ in range(4)]
             for n in range(4):
                 for m in range(4):
-                    ld = (cl - lp[:, n:n + h, m:m + w]).abs()
-                    edge_f = torch.clamp(1.0 + ld * 0.01, max=1.5)
-                    flat_f = torch.clamp(1.0 - ld * (1.0 / 30.0), min=0.5)
-                    text_f = 0.8 + 0.4 * torch.exp(ld * -0.05)
-                    f[n][m] = torch.where(
-                        k == EDGE, edge_f,
-                        torch.where(k == FLAT, flat_f, text_f))
+                    if probe in ("full", "noeq"):
+                        ld = (cl - lp[:, n:n + h, m:m + w]).abs()
+                        edge_f = torch.clamp(1.0 + ld * 0.01, max=1.5)
+                        flat_f = torch.clamp(1.0 - ld * (1.0 / 30.0),
+                                             min=0.5)
+                        text_f = 0.8 + 0.4 * torch.exp(ld * -0.05)
+                        f[n][m] = torch.where(
+                            k == EDGE, edge_f,
+                            torch.where(k == FLAT, flat_f, text_f))
+                    elif probe == "nolaw":
+                        f[n][m] = (cl + 1024.0) - lp[:, n:n + h, m:m + w]
+                    else:
+                        f[n][m] = torch.ones_like(cl)
+            # the exemption's coefficient of a probe: 1 - F(0) at texture
+            # centres (the kernel's factored term), none for fma_only, noeq
+            g = (torch.where(k == TEXTURE, _TEXTURE_CENTRE, 0.0).to(dtype)
+                 if probe in ("law_scratch", "law_const", "nolaw")
+                 else None)
             for q in qs:
                 for px in pxs:
                     wsum = None
@@ -163,7 +205,12 @@ def adaptive_resize_reference(img_bhwc: torch.Tensor, wy: torch.Tensor,
                         for m in range(4):
                             a_ = wyv[:, q, n, None] * wxv[px, m][None, :]
                             e_ = wyev[:, q, n, None] * wxev[px, m][None, :]
-                            wgt = e_ + (a_ - e_) * f[n][m]
+                            if probe == "full":
+                                wgt = e_ + (a_ - e_) * f[n][m]
+                            elif g is None:
+                                wgt = a_ * f[n][m]
+                            else:
+                                wgt = a_ * f[n][m] + e_ * g
                             t = wgt[..., None] * xp[:, n:n + h, m:m + w]
                             wsum = wgt if wsum is None else wsum + wgt
                             acc = t if acc is None else acc + t
@@ -178,7 +225,8 @@ def adaptive_resize_reference(img_bhwc: torch.Tensor, wy: torch.Tensor,
     return hwc[..., :c].contiguous()
 
 
-def _launch(img, wy, wye, wx, s, layout, opaque, classes_out, stage):
+def _launch(img, wy, wye, wx, s, layout, opaque, classes_out, stage,
+            probe="full"):
     b, h, w, c = img.shape
     if b > 65535:
         raise ValueError(f"adaptive_resize_fused takes at most 65535 "
@@ -193,7 +241,16 @@ def _launch(img, wy, wye, wx, s, layout, opaque, classes_out, stage):
     else:
         out = torch.empty((b, h * s, w * s, c), dtype=torch.uint8,
                           device=img.device)
-    if out.numel():
+    if out.numel() and probe != "full":
+        lib = build.library()
+        with torch.cuda.device(img.device):
+            rc = lib.bim_adaptive_probe(
+                img.data_ptr(), wy.data_ptr(), wye.data_ptr(), wx.data_ptr(),
+                out.data_ptr(), None, b, h, w, c, s, int(planar),
+                PROBES[probe], torch.cuda.current_stream().cuda_stream)
+        build.check(rc, f"adaptive_probe {probe}")
+        adaptive_probe.launches[probe + ("_c1" if c == 1 else "")] += 1
+    elif out.numel():
         lib = build.library()
         with torch.cuda.device(img.device):
             stream = torch.cuda.current_stream().cuda_stream
@@ -272,6 +329,49 @@ def adaptive_resize_fused(img_u8, scale: int, a: float = -0.5, *,
 
 
 adaptive_resize_fused.launches = 0
+
+
+def adaptive_probe(img_u8, scale: int, probe: str, a: float = -0.5, *,
+                   layout: str = "hwc", weight_cache: dict | None = None,
+                   device=None):
+    """A probe instance of the kernel (``PROBES``; module docstring) on an
+    HWC or BHWC uint8 frame of 1 or 4 channels at an integer scale whose
+    S x S tile fits one pass (S <= 14): a CUDA tensor launches it, a CPU
+    tensor runs its plain version (:func:`adaptive_resize_reference`
+    ``probe=``), a numpy frame is moved to ``device``. ``layout`` "hwc" or
+    "planar". Launches are counted per instance in
+    ``adaptive_probe.launches`` (the probe, ``_c1`` for one channel)."""
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}")
+    if float(scale) != int(scale) or not 1 <= scale <= 14:
+        raise ValueError("adaptive_probe takes integer scales 1 to 14 (one "
+                         "pass of the S x S tile)")
+    if layout not in ("hwc", "planar"):
+        raise ValueError(f"unknown layout {layout!r}")
+    s = int(scale)
+    img = as_device_tensor(img_u8, device)
+    if img.dtype != torch.uint8 or img.dim() not in (3, 4):
+        raise ValueError("adaptive_probe expects HWC or BHWC uint8, got "
+                         f"{img.dtype} {tuple(img.shape)}")
+    squeeze_b = img.dim() == 3
+    if squeeze_b:
+        img = img[None]
+    b, h, w, c = img.shape
+    if c not in (1, 4):
+        raise ValueError(f"adaptive_probe takes 1 or 4 channels, got {c}")
+    wy, wye, wx = _weights(h, w, s, float(a), img.device, weight_cache)
+    if img.device.type == "cpu":
+        out = adaptive_resize_reference(img, wy, wye, wx, s, layout=layout,
+                                        probe=probe)
+    elif img.device.type == "cuda":
+        out = _launch(img, wy, wye, wx, s, layout, False, None, 0, probe)
+    else:
+        raise ValueError(f"unsupported device {img.device}")
+    return out[0] if squeeze_b else out
+
+
+adaptive_probe.launches = dict.fromkeys(
+    [p + sfx for sfx in ("", "_c1") for p in PROBES], 0)
 
 
 def adaptive_resize_fused_batch(imgs_u8, scale: int, a: float = -0.5, **kw):

@@ -23,6 +23,15 @@ pass with f32 accumulation for bf16 inputs.
 Counterparts of ``bicubic_interpolation_model_tpu/ops/pallas_packed_tail.py``
 (``packed_tail_fused``, ``packed_tail_pallas``).
 
+:func:`packed_tail_probe` launches kernel G's stage probes: the same grid,
+ring, products and stores with the stages after conv_out's products cut
+back to front, each writing a reduction of its last live stage
+(``"matmul"``, ``"tanh"``, ``"apply"``; the TPU lab's ``relayout`` stage
+is ``"tanh"`` here, since kernel G's apply reads the weights in the
+products' own layout), for dividing the kernel's time between its stages
+(``bench/labs.py``). Their plain version is
+:func:`packed_tail_probe_reference`.
+
 Output layouts: ``"planar"`` is the kernel's ``[S, h*S, w]`` uint32 (column
 phase planar, row phases interleaved, channel bytes little-endian; unpadded);
 ``"hwc"`` is uint8 ``[h*S, w*S, c]``; ``"hwc32"`` the RGBA32 word array
@@ -40,6 +49,8 @@ from .planar import pack_rgba32, unpack_planar
 
 _F_IN = 32              # the kernel's conv feature width (WeightPredictor)
 _N_OUT = 16             # conv_out channels = predicted weights
+#: kernel G's stage probes and their ids in csrc/packed_tail_map.cu
+PROBES = {"matmul": 1, "tanh": 2, "apply": 3}
 
 
 def packed_tail_supported(scale: int, twof: int, c: int) -> bool:
@@ -229,6 +240,73 @@ def packed_tail_reference(m, lr_f32, kout, bout, *, scale: int = 4,
     return words.reshape(hs, ws // s, s).permute(2, 0, 1).contiguous()
 
 
+def packed_tail_probe_reference(m, lr_f32, kout, bout, probe: str, *,
+                                scale: int = 4, halo: str = "zero"):
+    """The plain version of kernel G's stage probes on the operands of
+    :func:`packed_tail_reference`, planar ``[S, h*S, w]``: ``"matmul"`` the
+    sum of a pixel's 16 conv_out values (bias included) and ``"tanh"`` the
+    sum of their tanh, float32; ``"apply"`` channel 0 of
+    :func:`packed_tail_reference`, uint32 (the other bytes 0)."""
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}")
+    s = int(scale)
+    if probe == "apply":
+        words = packed_tail_reference(m, lr_f32, kout, bout, scale=s,
+                                      halo=halo)
+        return (words.view(torch.int32) & 0xff).view(torch.uint32)
+    if m.dtype == torch.bfloat16:
+        m, kout = m.float(), kout.to(torch.bfloat16)
+    kout, bout = kout.float(), bout.float()
+    rows, w = m.shape[:2]
+    h, lead = (rows - 2, 0) if halo == "rows" else (rows, 1)
+    mp = torch.nn.functional.pad(m.float(),
+                                 (0, 0, 0, 0, 0, 0, 1, 1, lead, lead))
+    out = torch.empty((s, h * s, w), dtype=torch.float32, device=m.device)
+    for pp in range(s):
+        for q in range(s):
+            acc = None
+            for dy in (-1, 0, 1):
+                p2, sy = (pp + dy) % s, (pp + dy) // s
+                for dx in (-1, 0, 1):
+                    q2, sx = (q + dx) % s, (q + dx) // s
+                    src = mp[1 + sy:1 + sy + h, 1 + sx:1 + sx + w, p2, q2]
+                    t = torch.einsum("hwi,io->hwo", src,
+                                     kout[dy + 1, dx + 1])
+                    acc = t if acc is None else acc + t
+            wts = acc + bout
+            if probe != "matmul":
+                wts = torch.tanh(wts)
+            out[q, pp::s] = wts.sum(dim=-1)
+    return out
+
+
+def packed_tail_probe(m, lr_f32, kout, bout, probe: str, *,
+                      scale: int = 4, halo: str = "zero"):
+    """A stage probe of kernel G (``PROBES``; module docstring) on the
+    operands of :func:`packed_tail` (no opaque alpha), planar ``[S, h*S,
+    w]``: float32 sums for ``"matmul"`` and ``"tanh"``, uint32 words for
+    ``"apply"``. CUDA tensors launch the probe instance,
+    CPU tensors run :func:`packed_tail_probe_reference`. Launches are
+    counted per probe name and map type in ``packed_tail_probe.launches``
+    (``"tanh_f32"``, ...)."""
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe {probe!r}")
+    s = int(scale)
+    if m.dim() == 6 and m.shape[0] == 1:
+        m = m[0]
+    h = _check_map(m, lr_f32, kout, bout, s, halo)
+    if m.device.type == "cpu":
+        return packed_tail_probe_reference(m, lr_f32, kout, bout, probe,
+                                           scale=s, halo=halo)
+    if m.device.type != "cuda":
+        raise ValueError(f"unsupported device {m.device}")
+    return _launch_map(m, lr_f32, kout, bout, h, s, False, halo, probe)
+
+
+packed_tail_probe.launches = dict.fromkeys(
+    [f"{p}_{d}" for d in ("f32", "bf16") for p in PROBES], 0)
+
+
 def _check_map(m, lr_f32, kout, bout, s, halo):
     if halo not in ("zero", "rows"):
         raise ValueError(f"halo must be 'zero' or 'rows', got {halo!r}")
@@ -263,7 +341,8 @@ def _check_map(m, lr_f32, kout, bout, s, halo):
     return h
 
 
-def _launch_map(m, lr_f32, kout, bout, h, s, opaque_alpha, halo):
+def _launch_map(m, lr_f32, kout, bout, h, s, opaque_alpha, halo,
+                probe="full"):
     w, c = m.shape[1], lr_f32.shape[-1]
     bf16 = m.dtype == torch.bfloat16
     m = m.contiguous()
@@ -272,17 +351,29 @@ def _launch_map(m, lr_f32, kout, bout, h, s, opaque_alpha, halo):
     kout = (kout.to(torch.bfloat16) if bf16 else kout).float().contiguous()
     bout = bout.float().contiguous()
     lr = lr_f32.float().contiguous()
-    out = torch.empty((s, h * s, w), dtype=torch.uint32, device=m.device)
+    sums = probe in ("matmul", "tanh")      # f32 bits per word
+    out = torch.empty((s, h * s, w), device=m.device,
+                      dtype=torch.float32 if sums else torch.uint32)
     if out.numel():
         lib = build.library()
+        args = (m.data_ptr(), int(bf16), lr.data_ptr(), kout.data_ptr(),
+                bout.data_ptr(), out.data_ptr(), h, w, c,
+                int(halo == "rows"))
         with torch.cuda.device(m.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.bim_packed_tail_map(
-                m.data_ptr(), int(bf16), lr.data_ptr(), kout.data_ptr(),
-                bout.data_ptr(), out.data_ptr(), h, w, c,
-                int(halo == "rows"), int(opaque_alpha), stream)
-        build.check(rc, "packed_tail")
-        packed_tail.launches += 1
+            if probe == "full":
+                rc = lib.bim_packed_tail_map(*args, int(opaque_alpha),
+                                             stream)
+            else:
+                rc = lib.bim_packed_tail_map_probe(*args, PROBES[probe],
+                                                   stream)
+        if probe == "full":
+            build.check(rc, "packed_tail")
+            packed_tail.launches += 1
+        else:
+            build.check(rc, f"packed_tail probe {probe}")
+            packed_tail_probe.launches[
+                f"{probe}_{'bf16' if bf16 else 'f32'}"] += 1
     return out
 
 

@@ -17,6 +17,16 @@ interleaved). The kernel takes its extents at run time, so outputs have the
 exact extents (the JAX form pads them to its tile grid; the valid region is
 the same). The kernel reads the same weights restaged in the order its
 threads read them (:func:`_kernel_weights`).
+
+:func:`resize_phase_probe` launches the kernel's probe instances (uint8
+RGBA): the same grid, staging and stores with one stage cut or replaced,
+for dividing the kernel's time between its stages (``bench/labs.py``).
+``"rowonly"`` stores the row pass at each LR column's first tap (input
+column ``X - left``) for every column phase, with no column pass;
+``"null"`` stores each LR pixel over its S x S block, with no row or column
+pass; ``"chw"`` is the full resize stored channel-planar ``[B, C, H*S,
+W*S]``. Their plain versions are :func:`resize_phase_reference`'s
+``probe=``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,9 @@ _TILE_R, _TILE_X, _PH = 16, 32, 4
 # Left extent of each kernel's tap window relative to floor(ox): bicubic
 # taps start at floor(ox)-1, lanczos-a at floor(ox)-a+1, the rest at 0.
 _LEFT_EXTENT = {"nearest": 0, "bilinear": 0, "bicubic": 1, "lanczos": 2}
+
+#: probe instances of the kernel and their ids in csrc/resize_phase.cu
+PROBES = {"rowonly": 1, "null": 2, "chw": 3}
 
 
 # tap-slot count per (method, scale): set by the kernel's support, never by
@@ -128,27 +141,46 @@ def _shifted(x, t, axis, n):
 def resize_phase_reference(img_bhwc: torch.Tensor, wrow: torch.Tensor,
                            wcol: torch.Tensor, s: int, taps: int, left: int,
                            layout: str = "hwc",
-                           dtype: torch.dtype = torch.float32):
+                           dtype: torch.dtype = torch.float32,
+                           probe: str = "full"):
     """The plain PyTorch version of the kernel: shifted slices times the
     slot weights, multiply-add over the slots in order, in ``dtype``
     (``torch.float64`` is the oracle on the card); the same rounding and
-    layouts. ``wrow`` [H*S, T] (interleaved), ``wcol`` [S*T, W]."""
+    layouts. ``wrow`` [H*S, T] (interleaved), ``wcol`` [S*T, W].
+
+    ``probe`` (uint8 input) gives a probe instance's plain version:
+    ``"rowonly"`` the row pass at input column ``X - left`` (zero outside),
+    rounded, for every column phase; ``"null"`` each LR pixel over its
+    S x S block; ``"chw"`` the result with its channels moved to the front,
+    ``[B, C, H*S, W*S]`` (``layout`` is then not read)."""
     b, h, w, c = img_bhwc.shape
     out_u8 = img_bhwc.dtype == torch.uint8
+    if probe not in ("full", *PROBES):
+        raise ValueError(f"unknown probe {probe!r}")
+    if probe == "chw":
+        hwc = resize_phase_reference(img_bhwc, wrow, wcol, s, taps, left,
+                                     dtype=dtype)
+        return hwc.permute(0, 3, 1, 2).contiguous()
     x = img_bhwc.to(dtype)
     wr = wrow.to(dtype).reshape(h, s, taps)
     wc = wcol.to(dtype).reshape(s, taps, w)
-    tmp = None                                      # [B, H, S, W, C]
-    for t in range(taps):
-        term = (wr[None, :, :, t, None, None]
-                * _shifted(x, t - left, 1, h)[:, :, None])
-        tmp = term if tmp is None else tmp + term
-    tmp = tmp.reshape(b, h * s, w, c)
-    out = None                                      # [B, S, H*S, W, C]
-    for m in range(taps):
-        term = (wc[None, :, m, None, :, None]
-                * _shifted(tmp, m - left, 2, w)[:, None])
-        out = term if out is None else out + term
+    if probe == "null":
+        out = x.repeat_interleave(s, 1)[:, None].expand(b, s, h * s, w, c)
+    else:
+        tmp = None                                  # [B, H, S, W, C]
+        for t in range(taps):
+            term = (wr[None, :, :, t, None, None]
+                    * _shifted(x, t - left, 1, h)[:, :, None])
+            tmp = term if tmp is None else tmp + term
+        tmp = tmp.reshape(b, h * s, w, c)
+    if probe == "rowonly":
+        out = _shifted(tmp, -left, 2, w)[:, None].expand(b, s, h * s, w, c)
+    elif probe == "full":
+        out = None                                  # [B, S, H*S, W, C]
+        for m in range(taps):
+            term = (wc[None, :, m, None, :, None]
+                    * _shifted(tmp, m - left, 2, w)[:, None])
+            out = term if out is None else out + term
     if out_u8:
         out = torch.clamp(torch.trunc(out + 0.5), 0, 255).to(torch.uint8)
     else:
@@ -158,15 +190,24 @@ def resize_phase_reference(img_bhwc: torch.Tensor, wrow: torch.Tensor,
     return out.permute(0, 2, 3, 1, 4).reshape(b, h * s, w * s, c)
 
 
-def _phase_call(img_bhwc, weights, *, s, layout="hwc"):
+def _phase_call(img_bhwc, weights, *, s, layout="hwc", probe="full"):
     """Dispatch on the tensor's device: CUDA launches the kernel on the
     restaged weights (or raises), CPU runs the plain version. ``weights``
-    as :func:`_weights` gives them."""
+    as :func:`_weights` gives them. ``probe`` other than ``"full"`` takes a
+    probe instance (uint8 RGBA; :func:`resize_phase_probe`)."""
     wrow, wcol, taps, left, wrow_k, wcol_k = weights
     if layout not in ("hwc", "planar"):
         raise ValueError(f"unknown layout {layout!r}")
     b, h, w, c = img_bhwc.shape
     in_dtype = img_bhwc.dtype
+    if probe != "full":
+        if probe not in PROBES:
+            raise ValueError(f"unknown probe {probe!r}")
+        if in_dtype != torch.uint8 or c != 4 or (probe == "chw"
+                                                 and layout != "hwc"):
+            raise ValueError(f"probe {probe!r} takes uint8 RGBA frames"
+                             + (" and layout='hwc'" if probe == "chw"
+                                else ""))
     if in_dtype != torch.uint8:
         img_bhwc = img_bhwc.to(torch.float32)
     if not 1 <= c <= 4:
@@ -174,7 +215,7 @@ def _phase_call(img_bhwc, weights, *, s, layout="hwc"):
     dev = img_bhwc.device
     if dev.type == "cpu":
         out = resize_phase_reference(img_bhwc, wrow, wcol, s, taps, left,
-                                     layout)
+                                     layout, probe=probe)
         return out if in_dtype == torch.uint8 else out.to(in_dtype)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -182,7 +223,8 @@ def _phase_call(img_bhwc, weights, *, s, layout="hwc"):
         raise ValueError(f"resize_phase takes at most 65535 frames, got {b}")
     out_u8 = img_bhwc.dtype == torch.uint8
     img_bhwc = img_bhwc.contiguous()
-    shape = ((b, s, h * s, w * c) if layout == "planar"
+    shape = ((b, c, h * s, w * s) if probe == "chw"
+             else (b, s, h * s, w * c) if layout == "planar"
              else (b, h * s, w * s, c))
     out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
                       device=dev)
@@ -190,15 +232,26 @@ def _phase_call(img_bhwc, weights, *, s, layout="hwc"):
         lib = build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.bim_resize_phase(
-                img_bhwc.data_ptr(), int(out_u8), wrow_k.data_ptr(),
-                wcol_k.data_ptr(), out.data_ptr(), b, h, w, c, s, taps, left,
-                int(layout == "planar"), stream)
+            if probe == "full":
+                rc = lib.bim_resize_phase(
+                    img_bhwc.data_ptr(), int(out_u8), wrow_k.data_ptr(),
+                    wcol_k.data_ptr(), out.data_ptr(), b, h, w, c, s, taps,
+                    left, int(layout == "planar"), stream)
+            else:
+                rc = lib.bim_resize_phase_probe(
+                    img_bhwc.data_ptr(), wrow_k.data_ptr(), wcol_k.data_ptr(),
+                    out.data_ptr(), b, h, w, c, s, taps, left,
+                    int(layout == "planar"), PROBES[probe], stream)
         if rc == -1:
             raise ValueError(f"resize_phase: scale {s} with {taps} taps "
                              "needs more shared memory than a block has")
-        build.check(rc, "resize_phase")
-        resize_phase.launches += 1
+        build.check(rc, "resize_phase" if probe == "full"
+                    else f"resize_phase probe {probe}")
+        if probe == "full":
+            resize_phase.launches += 1
+        else:
+            resize_phase_probe.launches[
+                probe + ("_planar" if layout == "planar" else "")] += 1
     return out if out_u8 else out.to(in_dtype)
 
 
@@ -265,6 +318,35 @@ def resize_phase(img, scale, method: str = "bicubic", *, a: float = -0.5,
 
 
 resize_phase.launches = 0
+
+
+def resize_phase_probe(img, scale, probe: str, method: str = "bicubic", *,
+                       a: float = -0.5, lanczos_a: int = 3,
+                       layout: str = "hwc", weight_cache: dict | None = None,
+                       device=None):
+    """A probe instance of the kernel (``"rowonly"``, ``"null"`` or
+    ``"chw"``; see the module docstring) on a uint8 RGBA BHWC frame at an
+    integer scale: a CUDA tensor launches it, a CPU tensor runs its plain
+    version (:func:`resize_phase_reference` ``probe=``), a numpy frame is
+    moved to ``device``. ``layout`` as :func:`resize_phase` for
+    ``"rowonly"`` and ``"null"``; ``"chw"`` returns ``[B, C, H*S, W*S]``.
+    Launches are counted per instance in ``resize_phase_probe.launches``
+    (the probe, ``_planar`` for the planar layout)."""
+    if not (float(scale) == int(scale) and scale >= 1):
+        raise ValueError("resize_phase_probe requires an integer upscale")
+    s = int(scale)
+    img = as_device_tensor(img, device)
+    if img.dim() != 4:
+        raise ValueError("resize_phase_probe takes BHWC frames, got shape "
+                         f"{tuple(img.shape)}")
+    h, w = img.shape[1:3]
+    weights = _weights(method, h, w, s, a, lanczos_a, img.device,
+                       weight_cache)
+    return _phase_call(img, weights, s=s, layout=layout, probe=probe)
+
+
+resize_phase_probe.launches = dict.fromkeys(
+    ("rowonly", "rowonly_planar", "null", "null_planar", "chw"), 0)
 
 
 def interleave_planar(planar, h: int, w: int, scale: int, c: int):

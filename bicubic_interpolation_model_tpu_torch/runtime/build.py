@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -42,6 +43,17 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bim_resize_banded": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+}
+# the probe instances of kernels D, E and G (bench/labs.py): each source's
+# second entry point, which launches a production kernel's template with
+# one stage cut or replaced
+_PROBE_SIGNATURES = {
+    "bim_resize_phase_probe": [_P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bim_adaptive_probe": [_P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
+    "bim_packed_tail_map_probe": [_P, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -123,7 +135,8 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-            for name, argtypes in _SIGNATURES.items():
+            for name, argtypes in {**_SIGNATURES,
+                                   **_PROBE_SIGNATURES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -135,3 +148,91 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` from a C entry point."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# one template argument of an Itanium-mangled name: an integer or bool
+# literal (``Li4E``, ``Lb0E``, ``Lin1E`` for -1), a length-prefixed type
+# name (``13__nv_bfloat16``) or a builtin type's letter
+_TEMPLATE_ARG = re.compile(r"L[a-z](n?)(\d+)E|(\d+)|([a-z])")
+_TYPE_NAMES = {"__nv_bfloat16": "bf16", "f": "float", "d": "double",
+               "i": "int", "j": "unsigned", "b": "bool", "h": "uchar"}
+
+
+def kernel_instance(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel instance, whether its name is
+    nested (the anonymous namespace of ``csrc/*.cu``) or not: every
+    template argument in order, literals as numbers (bools 0 / 1) and the
+    map types as ``float`` / ``bf16``; the mangled name itself where it is
+    not a templated ``*kernel``."""
+    m = re.search(r"([A-Za-z_]+kernel)I", mangled)
+    if not m:
+        return mangled
+    pos, args = m.end(), []
+    while pos < len(mangled) and mangled[pos] != "E":
+        t = _TEMPLATE_ARG.match(mangled, pos)
+        if t is None:
+            return mangled
+        neg, lit, length, letter = t.groups()
+        pos = t.end()
+        if lit is not None:
+            args.append(("-" if neg else "") + lit)
+        elif length is not None:
+            name = mangled[pos:pos + int(length)]
+            pos += int(length)
+            args.append(_TYPE_NAMES.get(name, name))
+        else:
+            args.append(_TYPE_NAMES.get(letter, letter))
+    if pos >= len(mangled):
+        return mangled
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel instance of a source's ``ptxas -v`` report: the
+    kernel with its template arguments (:func:`kernel_instance`), its
+    registers and its spills."""
+    lines, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = kernel_instance(ln.split("'")[1])
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            lines.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spill}")
+    return lines
+
+
+def sass_functions(lib_path) -> dict | None:
+    """The SASS instruction lines of each kernel instance in a built
+    library (cuobjdump of the CUDA toolkit beside nvcc), by
+    :func:`kernel_instance`; None without cuobjdump. Two instances that
+    read as one name raise."""
+    try:
+        tool = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    except RuntimeError:
+        return None
+    if not tool.exists():
+        return None
+    res = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    funcs, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            fn = kernel_instance(ln.split("Function :")[1].strip())
+            if fn in funcs:
+                raise RuntimeError(f"two kernel instances read as {fn}")
+            funcs[fn] = []
+        elif fn is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
+            funcs[fn].append(ln.strip())
+    return funcs
+
+
+def sass_hmma(lib_path) -> dict | None:
+    """Count of HMMA instructions per kernel instance in a built library's
+    SASS, for the instances that hold any; None without cuobjdump."""
+    funcs = sass_functions(lib_path)
+    if funcs is None:
+        return None
+    counts = {fn: sum("HMMA" in ln for ln in lines)
+              for fn, lines in funcs.items()}
+    return {fn: n for fn, n in counts.items() if n}

@@ -27,11 +27,15 @@ weight predictor's trainer in patch and image mode (its card step against
 the CPU step), the five direct models' and the MLP's trainers, the sharded
 steps on a mesh of the card repeated against the unsharded steps, and the
 trained checkpoint saved, loaded and served through kernels A and B.
+Then the labs: every probe instance of kernels D, E and G
+(``bench/labs.py``: one stage cut or replaced) launched once, held to its
+plain version and timed beside its full instance.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the repository beside it, the script fails and prints no result.
+without the repository beside it (its import of the port's package
+fails), the script fails and prints no result.
 Imports nothing of JAX.
 """
 
@@ -40,16 +44,16 @@ from __future__ import annotations
 import contextlib
 import io
 import itertools
-import json
 import pathlib
-import re
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from bicubic_interpolation_model_tpu_torch.bench.labs import (
+    all_class_frames, card, emit, u8_frames)
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GEOMETRIES = [(24, 40, 4), (19, 37, 4), (13, 9, 3), (8, 128, 1),
@@ -64,19 +68,6 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12              # H100 SXM f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12            # H100 SXM tensor cores, dense TF32
 BF16_FLOP_PER_S = 989e12            # H100 SXM tensor cores, dense bf16
-
-
-def emit(obj):
-    print(json.dumps(obj), flush=True)
-
-
-def card():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
-        else "nvidia-smi unavailable"
 
 
 def time_ms(fn, iters=1, runs=20, warmup=3):
@@ -149,24 +140,6 @@ def device_ms(fn, n=20, warmup=3, kernel=None):
               f"of {n} launches; the mean is over those it holds",
               file=sys.stderr, flush=True)
     return sum(durations) / 1e3 / len(durations)
-
-
-def ptxas_summary(log):
-    """One line per kernel instance of a source's ``ptxas -v`` report: the
-    kernel with its template arguments, its registers and its spills."""
-    lines, name, spill = [], None, ""
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            name = ln.split("'")[1]
-            m = re.search(r"([A-Za-z_]+kernel)I((?:L[ib]\d+E)+)E", name)
-            if m:
-                name = m.group(1) + "<" + ",".join(
-                    re.findall(r"L[ib](\d+)E", m.group(2))) + ">"
-        elif "spill stores" in ln:
-            spill = ln.strip()
-        elif "Used" in ln and "registers" in ln:
-            lines.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spill}")
-    return lines
 
 
 def diff_u8(a, b):
@@ -252,25 +225,6 @@ def banded_products(b, c, k_row, k_col, kw, th):
     return row + col, (2 * row + 3 * col) / TF32_FLOP_PER_S * 1e3
 
 
-def sass_hmma(lib_path):
-    """Count of HMMA instructions per kernel in the built library's SASS
-    (cuobjdump of the CUDA toolkit), for the kernels that hold any; None
-    without cuobjdump."""
-    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
-    if not tool.exists():
-        return None
-    res = subprocess.run([str(tool), "-sass", str(lib_path)],
-                         capture_output=True, text=True, timeout=300)
-    counts, fn = {}, None
-    for ln in res.stdout.splitlines():
-        if "Function :" in ln:
-            m = re.search(r"([A-Za-z_]+kernel)I", ln)
-            fn = m.group(1) if m else ln.split("Function :")[1].strip()
-        elif "HMMA" in ln:
-            counts[fn] = counts.get(fn, 0) + 1
-    return counts
-
-
 def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
     """Least time of a separable resize [b, h, w, c] -> [b, ho, wo, c]:
     bytes (input read once, output written once) over HBM rate, useful f32
@@ -284,7 +238,22 @@ def resize_bound(b, h, w, c, ho, wo, taps, in_bytes):
                                  else "operations"), nbytes, flops
 
 
-def adaptive_bound(b, h, w, c, s, texture_share):
+def phase_probe_bound(probe, b, h, w, c, s, taps):
+    """Least time of kernel D's probe ``probe`` on u8 [b, h, w, c] at scale
+    s (:func:`resize_bound`'s count): ``chw`` the full resize, ``rowonly``
+    its row pass alone, ``null`` no FMA (bytes only)."""
+    ho, wo = h * s, w * s
+    if probe == "chw":
+        return resize_bound(b, h, w, c, ho, wo, taps, 1)[:2]
+    nbytes = b * c * (h * w + ho * wo)
+    flops = 2 * taps * b * c * ho * w if probe == "rowonly" else 0
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def adaptive_bound(b, h, w, c, s, texture_share, probe="full"):
     """Least time of adaptive bicubic [b, h, w, c] u8 -> [b, h*s, w*s, c]:
     bytes (input read once, output written once) over HBM rate, useful f32
     operations over the f32 peak, counted in the factored order (the least
@@ -298,13 +267,22 @@ def adaptive_bound(b, h, w, c, s, texture_share):
     for texture centres the exemption term (3 adds and a product per
     (variant, row phase); 3 adds, a product and a multiply-add per channel
     and for the sum per output pixel), by this run's share of texture
-    centres."""
+    centres. A probe of kernel E (``ops/adaptive_fused.PROBES``) counts what
+    it keeps: ``law_scratch`` one multiply-add per factor, ``nolaw`` one
+    subtract per factor (and the bias per variant), ``law_const`` and
+    ``fma_only`` no factor and no product by it, ``fma_only`` and ``noeq``
+    no exemption term."""
     n_lr, n_out = b * h * w, b * h * s * w * s
     variants = 4 if s > 1 else 1
     row_phases = 2 * s if s > 1 else 1      # (variant, row phase) pairs
-    per_lr = (5 + 79 + 2 + variants * 16 * (2 + 3 + texture_share)
-              + row_phases * (16 + 12 + 32 * c + 4 * texture_share))
-    per_out = 8 * (c + 1) + 1 + 2 * c + texture_share * (4 + 2 * (c + 1))
+    law = {"full": 2 + 3 + texture_share, "noeq": 2 + 3 + texture_share,
+           "law_scratch": 2, "nolaw": 1 + 1 / 16, "law_const": 0,
+           "fma_only": 0}[probe]
+    products = 0 if probe in ("law_const", "fma_only") else 16
+    eq = 0 if probe in ("fma_only", "noeq") else texture_share
+    per_lr = (5 + 79 + 2 + variants * 16 * law
+              + row_phases * (products + 12 + 32 * c + 4 * eq))
+    per_out = 8 * (c + 1) + 1 + 2 * c + eq * (4 + 2 * (c + 1))
     nbytes = n_lr * c + n_out * c
     flops = n_out * per_out + n_lr * per_lr
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -327,17 +305,25 @@ def map_case(h, w, c, halo, dev, seed):
     return m, lr, kout, bout
 
 
-def map_bound(h, w, c, halo, m_bytes=4):
+def map_bound(h, w, c, halo, m_bytes=4, probe="full"):
     """Least time of kernel G on h x w LR pixels (m_bytes 4 for an f32 map,
     2 for bf16): bytes (the merged map, the LR pixels and the output words,
     each moved once) over the HBM rate; conv_out over all 32 lanes of the
     map (its offset lanes are data here), 9 taps x 32 x 16 multiply-adds
     per output phase, on the tensor cores; tanh and the tap apply (16 x 16
-    per channel) on the f32 CUDA cores (:func:`ops_bound`)."""
+    per channel) on the f32 CUDA cores (:func:`ops_bound`). A stage probe
+    (``ops/packed_tail.PROBES``) counts what it keeps: ``matmul`` the
+    products and a sum of the 16 weights, ``tanh`` also tanh, neither
+    reads the LR pixels; ``apply`` tanh and channel 0's apply, reading
+    channel 0."""
     rows, lr_rows = (h + 2, h + 3) if halo == "rows" else (h, h)
-    nbytes = rows * w * 512 * m_bytes + lr_rows * w * c * 4 + h * w * 16 * 4
+    lr_c = {"matmul": 0, "tanh": 0, "apply": 1}.get(probe, c)
+    nbytes = (rows * w * 512 * m_bytes + lr_rows * w * lr_c * 4
+              + h * w * 16 * 4)
     products = 2 * h * w * 16 * 9 * 32 * 16
-    other = h * w * (256 + 2 * 16 * 16 * c)
+    other = h * w * {"matmul": 16 * 16, "tanh": 256 + 16 * 16,
+                     "apply": 256 + 2 * 16 * 16}.get(
+                         probe, 256 + 2 * 16 * 16 * c)
     return (*ops_bound(nbytes, products, other, m_bytes == 2), nbytes,
             products + other)
 
@@ -390,32 +376,6 @@ def check_kernel_g(pt, dev, emit_fn):
                                  f"version: {res}")
         worst = max(worst, mx)
     return worst
-
-
-def u8_frames(rng, *shape):
-    return rng.integers(0, 256, shape, dtype=np.uint8)
-
-
-def all_class_frames(rng, b, h, w, c):
-    """[b, h, w, c] u8 frames that reach all three region classes of
-    adaptive bicubic and both variance thresholds: quadrants of a constant
-    (flat), a slow gradient (texture), low-amplitude noise (flat and
-    texture) and full noise (edge), under a band of step edges; alpha
-    varies."""
-    yy, xx = np.mgrid[:h, :w]
-    out = u8_frames(rng, b, h, w, c)
-    h2, w2 = h // 2, w // 2
-    out[:, :h2, :w2] = 97
-    out[:, :h2, w2:] = ((40 + 2.2 * xx + 1.3 * yy) % 256).astype(
-        np.uint8)[None, :h2, w2:, None]
-    out[:, h2:, :w2] = rng.integers(114, 127, (b, h - h2, w2, c),
-                                    dtype=np.uint8)
-    out[:, h // 4:h // 4 + max(1, h // 8)] = np.where(
-        (xx // max(1, w // 6)) % 2 == 0, 60, 180).astype(
-        np.uint8)[None, h // 4:h // 4 + max(1, h // 8), :, None]
-    if c == 4:
-        out[..., 3] = u8_frames(rng, b, h, w)
-    return out
 
 
 def check_kernel_e(adf, ilv, dev, emit_fn):
@@ -1342,15 +1302,106 @@ def train_path(dev, name_power, zero_counts, read_counts):
                              f"{vs_exact}")
 
 
+def labs_path(dev, name_power):
+    """The labs phase: every probe instance of kernels D, E and G
+    (``bench/labs``) beside its production instance. With the probes'
+    counts at 0, each instance launches once at the labs' shapes (D on a
+    1080x1920 RGBA frame at 4x, hwc and planar; E on an all-class
+    1080x1920 frame at 4x, planar, C = 4 and 1; G on a 348x510 merged map,
+    f32 and bf16); every probe's count must then be 1. Each output is held
+    to its plain version at the kernel's tolerance, then each instance is
+    timed as the seven kernels are (:func:`device_ms` of its kernel
+    function, inputs rotated past the L2), and its plain version once by
+    CUDA events. Prints one line per lab and returns the kernels line's
+    entries of the probe instances."""
+    from bicubic_interpolation_model_tpu_torch.bench import labs, suite
+    from bicubic_interpolation_model_tpu_torch.ops.adaptive import (
+        luma_bt709, region_classes)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(41)
+    d_in = torch.from_numpy(u8_frames(rng, 1, *HD, 4)).to(dev)
+    d_in[..., 3] = 255
+    e_frame = all_class_frames(rng, 1, *HD, 4)
+    e_in = [torch.from_numpy(e_frame).to(dev),
+            torch.from_numpy(e_frame[..., :1].copy()).to(dev)]
+    m, lr, kout, bout = map_case(*FRAME, 4, "zero", dev, 43)
+    cases = (labs.d_cases(d_in) + labs.e_cases(e_in)
+             + labs.g_cases(m, lr, kout, bout))
+    labs.zero_counts()
+    outs = [case.run(case.x) for case in cases]
+    torch.cuda.synchronize()
+    counts = labs.read_counts()
+    launched = {case.name: case.launches() for case in cases}
+    wrong = {f"{k}:{n}": v for k, c in counts.items() for n, v in c.items()
+             if v != 1}
+    if wrong:
+        raise AssertionError(f"labs: probe launches other than one each: "
+                             f"{wrong} ({counts})")
+    texture = {c: float((region_classes(luma_bt709(x.float())) == 0)
+                        .double().mean()) for c, x in ((4, e_in[0]),
+                                                       (1, e_in[1]))}
+    rows = {}
+    for case, got in zip(cases, outs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref = case.plain(case.x)
+        b.record()
+        b.synchronize()
+        err, ok = case.check(got, ref)
+        if not ok:
+            raise AssertionError(f"labs: {case.name} deviates from its "
+                                 f"plain version: {err}")
+        del ref
+        inputs = [(x,) for x in suite._rotated(case.x, max_copies=16)]
+        ms = device_ms(rotating(case.run, inputs), kernel=case.symbol)
+        del inputs
+        c = case.x.shape[-1]
+        if case.kernel == "D":
+            bound = (resize_bound(1, *HD, 4, HD[0] * 4, HD[1] * 4, 4, 1)[:2]
+                     if case.probe == "full"
+                     else phase_probe_bound(case.probe, 1, *HD, 4, 4, 4))
+        elif case.kernel == "E":
+            bound = adaptive_bound(1, *HD, c, 4, texture[c], case.probe)[:2]
+        else:
+            bound = map_bound(*FRAME, 4, "zero",
+                              2 if case.x.dtype == torch.bfloat16 else 4,
+                              case.probe)[:2]
+        rows[case.name] = {"case": case, "max_abs_err": err, "ms": ms,
+                           "plain_ms": a.elapsed_time(b),
+                           "bound_ms": bound[0], "bound_by": bound[1]}
+    del outs
+    for lab in ("kernel_lab", "adaptive_probe_lab", "adaptive_lab",
+                "packed_tail_lab"):
+        # adaptive_lab's probes stand beside E's full instances too
+        mine = {n: r for n, r in rows.items() if r["case"].lab == lab
+                or (lab == "adaptive_lab" and r["case"].kernel == "E"
+                    and r["case"].probe == "full")}
+        emit({"phase": "labs", "lab": lab, "card": name_power,
+              "ms": "device_ms: mean device duration of the instance's "
+                    "kernel in one trace of 20 launches",
+              "instances": {n: {"probe": r["case"].probe, "ms": r["ms"],
+                                "max_abs_err": r["max_abs_err"],
+                                "plain_ms": r["plain_ms"],
+                                "bound_ms": r["bound_ms"]}
+                            for n, r in mine.items()}})
+    emit({"phase": "labs_done", "probe_launches": counts,
+          "texture_share": texture,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return [{"name": n, "route": "cuda", "source": r["case"].source,
+             "replaces": r["case"].replaces,
+             "launches": launched[n],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None}
+            for n, r in rows.items() if r["case"].probe != "full"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    if not (ROOT / "bicubic_interpolation_model_tpu_torch").is_dir():
-        print("chip_smoke: the port's package is not beside this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         super_resolve)
     from bicubic_interpolation_model_tpu_torch.ops import (
@@ -1400,11 +1451,11 @@ def main() -> int:
 
     # 2. build
     rec = build.build(force=True)
-    ptxas = {src: ptxas_summary(log) for src, log in rec["ptxas"].items()}
+    ptxas = {src: build.ptxas_summary(log) for src, log in rec["ptxas"].items()}
     build.library()
     emit({"phase": "build", "seconds": round(rec["seconds"], 3),
           "sources": [s.name for s in build.sources()], "ptxas": ptxas,
-          "sass_hmma": sass_hmma(build.BUILD_DIR / build.LIB_NAME)})
+          "sass_hmma": build.sass_hmma(build.BUILD_DIR / build.LIB_NAME)})
 
     # 3. kernel A vs its plain version (batches of 3 at the MMA edges)
     a_err = 0
@@ -2034,6 +2085,9 @@ def main() -> int:
         x, 4, weight_cache=wc_e), [(gray_dev[i:i + 1],) for i in range(32)])
     run_e_two = rotating(lambda x: adf.adaptive_resize_fused(
         x, 4, weight_cache=wc_e), [(two_dev[i:i + 1],) for i in range(16)])
+    run_e_rgb = rotating(lambda x: adf.adaptive_resize_fused(
+        x, 4, weight_cache=wc_e),
+        [(x[..., :3].contiguous(),) for (x,) in e_in])
     run_e_plain = rotating(lambda x: adf.adaptive_resize_reference(
         x, *wts_e, 4), e_in)
     run_e_graph = rotating(lambda x: adaptive_resize(x[0], 4, impl="jnp"),
@@ -2049,6 +2103,7 @@ def main() -> int:
     e_opaque_ms = device_ms(run_e_opaque, kernel="adaptive_kernel")
     e_gray_ms = device_ms(run_e_gray, kernel="adaptive_kernel")
     e_two_ms = device_ms(run_e_two, kernel="adaptive_kernel")
+    e_rgb_ms = device_ms(run_e_rgb, kernel="adaptive_kernel")
     f_ms = device_ms(run_f, kernel="resize_banded_kernel")
     e_plain = device_ms(run_e_plain, n=2, warmup=1)
     e_graph = device_ms(run_e_graph, n=2, warmup=1)
@@ -2058,6 +2113,8 @@ def main() -> int:
                                                      class_share[0])
     e_gray_bound = adaptive_bound(1, *HD, 1, 4, gray_share[0])
     e_two_bound = adaptive_bound(1, *HD, 2, 4, two_share[0])
+    # the RGB channels of the RGBA frames: the same luma, so their classes
+    e_rgb_bound = adaptive_bound(1, *HD, 3, 4, class_share[0])
     del gray_dev, two_dev
     # kernel F's tensor-core products as launched on this frame, beside its
     # bytes bound (its function's bound is resize_bound's)
@@ -2082,6 +2139,10 @@ def main() -> int:
                           "bound_by": e_two_bound[1],
                           "bytes": e_two_bound[2], "flops": e_two_bound[3],
                           "share_texture_flat_edge": two_share},
+          "rgb": {"frame": [*HD, 3], "adaptive_resize_fused_ms": e_rgb_ms,
+                  "bound_ms": e_rgb_bound[0], "bound_by": e_rgb_bound[1],
+                  "bytes": e_rgb_bound[2], "flops": e_rgb_bound[3],
+                  "share_texture_flat_edge": class_share},
           "adaptive_resize_fused_plain_ms_no_yardstick": e_plain,
           "adaptive_plain_graph_ms_no_yardstick": e_graph,
           "resize_banded_ms": f_ms,
@@ -2372,6 +2433,9 @@ def main() -> int:
     # serves what it trained through kernels A and B)
     train_path(dev, name_power, zero_counts, read_counts)
 
+    # 6i. the labs: the probe instances of kernels D, E and G
+    probe_entries = labs_path(dev, name_power)
+
     # 7. kernels line, then the card, then the result
     emit({"kernels": [
         {"name": "packed_tail_fused", "route": "cuda",
@@ -2424,7 +2488,7 @@ def main() -> int:
                      "pallas_resize.py:81",
          "launches": launches_ef["resize_banded"], "max_abs_err": f_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": cd_bound,
-         "bound_by": cd_by, "library_ms": lib_ms}]})
+         "bound_by": cd_by, "library_ms": lib_ms}] + probe_entries})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,12 @@
-"""Kernels A, G, E, C, D and F of the PyTorch/CUDA port: an earlier
+"""Kernels A, G, B, E, C, D and F of the PyTorch/CUDA port: an earlier
 revision against the checkout's, on one card.
 
     python3 scripts/torch_tail_ab.py PARENT_CSRC
 
 PARENT_CSRC holds an earlier revision's ``packed_tail.cu``,
-``packed_tail_map.cu``, ``adaptive.cu``, ``resize_mxu.cu``,
-``resize_phase.cu`` and ``resize_banded.cu`` with the headers they include
+``packed_tail_map.cu``, ``interleave.cu``, ``adaptive.cu``,
+``resize_mxu.cu``, ``resize_phase.cu`` and ``resize_banded.cu`` with the
+headers they include
 (``tail_mma.cuh``, ``resize_common.cuh``; for example
 from ``git show REV:bicubic_interpolation_model_tpu_torch/csrc/NAME``), with
 the same C entry points. The script builds them with nvcc (sm_90a) into a
@@ -26,12 +27,18 @@ with ``chip_smoke.device_ms`` (mean device duration per launch in one
 profiler trace of 20 launches, inputs rotated over copies larger than the
 L2) at the main paths' shapes: kernel A at 348x510 RGBA with f32 and bf16
 features, kernel G on the whole 348x510 frame (f32 and bf16 maps) and on one
-band of 4 (87 rows, ``halo="rows"``), kernel E at 1080x1920 RGBA frames of
+band of 4 (87 rows, ``halo="rows"``), kernel B on the 348x510 frame's
+planar words, kernel E at 1080x1920 RGBA frames of
 all three region classes -> 4x in the hwc, planar and opaque-alpha layouts
-and on their RGB channels (with whether the two revisions give the same
-bytes on two frames: where E's arithmetic did not change they must),
+and on their RGB channels,
 kernel C at 1080x1920 RGBA -> 4x and 2.5x bicubic, kernel D (hwc and
-planar) and F at 1080x1920 RGBA -> 4x bicubic. Where a kernel's source
+planar) and F at 1080x1920 RGBA -> 4x bicubic, with whether the two
+revisions give the same bytes on two inputs of every case (where a
+kernel's arithmetic did not change they must). It also compares the SASS
+of every kernel instance the parent holds with the checkout's instance of
+the same template arguments (cuobjdump; a template parameter the checkout
+added, defaulted to 0, is dropped from its name): equal instruction lines
+mean the same machine code. Where a kernel's source
 did not change, its two revisions are the same code and their readings show
 the spread. Prints one JSON line per check and per reading, the card's name
 and power limit, and a summary line last. Imports nothing of JAX.
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,14 +64,19 @@ import chip_smoke as cs  # noqa: E402
 from bicubic_interpolation_model_tpu_torch.core import (  # noqa: E402
     plan as planlib)
 from bicubic_interpolation_model_tpu_torch.ops import (  # noqa: E402
-    adaptive_fused as adf, banded, mxu, packed_tail as pt, phase)
+    adaptive_fused as adf, banded, interleave as ilv, mxu, packed_tail as pt,
+    phase)
 from bicubic_interpolation_model_tpu_torch.runtime import build  # noqa: E402
 
-SOURCES = ("packed_tail.cu", "packed_tail_map.cu", "adaptive.cu",
-           "resize_mxu.cu", "resize_phase.cu", "resize_banded.cu")
+SOURCES = ("packed_tail.cu", "packed_tail_map.cu", "interleave.cu",
+           "adaptive.cu", "resize_mxu.cu", "resize_phase.cu",
+           "resize_banded.cu")
 ENTRIES = ("bim_packed_tail_fused", "bim_packed_tail_map",
-           "bim_adaptive_resize", "bim_resize_mxu", "bim_resize_phase",
-           "bim_resize_banded")
+           "bim_interleave_planar_u32", "bim_adaptive_resize",
+           "bim_resize_mxu", "bim_resize_phase", "bim_resize_banded")
+# kernels whose template gained a last parameter defaulted to 0 (their
+# probe instances; bench/labs.py)
+PROBED = ("resize_phase_kernel", "adaptive_kernel", "packed_tail_map_kernel")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # bim_resize_banded of a revision without block ranges
 BANDED_NO_RANGES = [_P, _I, _P, _P, _P] + [_I] * 14 + [_P]
@@ -97,6 +110,27 @@ def parent_library(csrc: pathlib.Path, out: pathlib.Path,
                        and not banded_ranges else build._SIGNATURES[name])
         fn.restype = ctypes.c_int
     return lib
+
+
+def sass_by_instance(lib_path, drop_probe: bool) -> dict:
+    """Each kernel instance's SASS instruction lines in a library, by
+    ``runtime/build.kernel_instance``, with runs of blanks made one (the
+    column padding of cuobjdump's listing differs between two builds); with
+    ``drop_probe`` the last template argument of the ``PROBED`` kernels is
+    dropped where it is 0 and the instances with another value are left
+    out."""
+    funcs = build.sass_functions(lib_path) or {}
+    out = {}
+    for name, lines in funcs.items():
+        lines = [" ".join(ln.split()) for ln in lines]
+        m = re.match(r"(\w+)<(.*)>$", name)
+        if drop_probe and m and m.group(1) in PROBED:
+            args = m.group(2).split(",")
+            if args[-1] != "0":
+                continue
+            name = f"{m.group(1)}<{','.join(args[:-1])}>"
+        out[name] = lines
+    return out
 
 
 def plan_windows(idx: np.ndarray, tile: int):
@@ -194,6 +228,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs["parent"] = parent_library(parent_csrc, pathlib.Path(tmp),
                                         banded_ranges)
+        parent_sass = sass_by_instance(
+            pathlib.Path(tmp) / "libparent_tail.so", drop_probe=False)
+    change_sass = sass_by_instance(build.BUILD_DIR / build.LIB_NAME,
+                                   drop_probe=True)
+    for name, lines in parent_sass.items():
+        mine = change_sass.get(name) or []
+        diff = [(a, b) for a, b in zip(lines, mine) if a != b]
+        cs.emit({"phase": "sass", "instance": name,
+                 "instructions": len(lines), "change_instructions": len(mine),
+                 "same": mine == lines, "lines_differing": len(diff),
+                 "first_differences": diff[:3]})
 
     h, w = cs.FRAME
     hb = h // 4
@@ -227,6 +272,15 @@ def main() -> int:
              "g_band_of_4_f32": (run_g("rows"), plain_g("rows"), gb_in, 1)}
     kernel_of = {name: ("packed_tail_fused_kernel" if name.startswith("a_")
                         else "packed_tail_map_kernel") for name in cases}
+    # kernel B on the planar words of a 348x510 frame at 4x (a copy: exact)
+    rng_b = np.random.default_rng(29)
+    b_in = [(torch.from_numpy(rng_b.integers(0, 2 ** 32, (4, h * 4, w),
+                                             dtype=np.uint32)).to(dev),)
+            for _ in range(4)]
+    cases["b"] = (ilv.interleave_planar_u32,
+                  lambda x: ilv.interleave_planar_u32_reference(x)
+                  .contiguous(), b_in, 0)
+    kernel_of["b"] = "interleave_kernel"
 
     # kernel E: 8 all-class 1080x1920 RGBA frames (66 MB in, 132.7 MB out
     # per call); kernel C: 8 noise frames
@@ -303,14 +357,16 @@ def main() -> int:
                      "max": mx, "share": share})
             if mx > tol or (tol == 1 and share >= 1e-3):
                 raise AssertionError(f"{rev} {name}: {mx} LSB, share {share}")
-            if name.startswith("e_"):
-                outs.setdefault(name, []).append(
-                    [runner(rev, name)(*x) for x in inputs[:2]])
+            outs.setdefault(name, []).append(
+                [runner(rev, name)(*x) for x in inputs[:2]])
+    same_bytes = {}
     for name, (parent_out, change_out) in outs.items():
-        same = all(torch.equal(p.view(torch.uint8), c.view(torch.uint8))
-                   for p, c in zip(parent_out, change_out))
+        same_bytes[name] = all(
+            torch.equal(p.contiguous().view(torch.uint8),
+                        c.contiguous().view(torch.uint8))
+            for p, c in zip(parent_out, change_out))
         cs.emit({"phase": "same_bytes", "case": name, "frames": 2,
-                 "equal": same})
+                 "equal": same_bytes[name]})
     del outs
     ms: dict = {}
     for rev in ("parent", "change", "change", "parent"):
@@ -325,8 +381,12 @@ def main() -> int:
     print(name_power, flush=True)
     cs.emit({"summary": {name: {
         "parent_ms": r["parent"], "change_ms": r["change"],
-        "change_over_parent": (sum(r["change"]) / sum(r["parent"]))}
-        for name, r in ms.items()}, "card": name_power})
+        "change_over_parent": (sum(r["change"]) / sum(r["parent"])),
+        "same_bytes": same_bytes[name]}
+        for name, r in ms.items()},
+        "sass_same": {n: change_sass.get(n) == ln
+                      for n, ln in parent_sass.items()},
+        "card": name_power})
     return 0
 
 

@@ -33,7 +33,10 @@ of per-frame calls. The bench (bench/): the harness's fenced wall time of
 a CUDA workload at least 0.9 of its CUDA-event time (the two clocks
 differ by the events' own resolution); ``check_parity`` of kernels C, D,
 D planar and F at 1080x1920 RGBA -> 4x ≤1 u8 from the port's float64
-oracle."""
+oracle. The probe instances of D, E and G (bench/labs.py) against their
+plain versions at the labs' tolerances, and the production instances of
+all seven kernels byte-equal (sha256) to what they gave before the probes
+were added."""
 
 import pathlib
 import subprocess
@@ -43,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import all_class_frames
+from bicubic_interpolation_model_tpu_torch.bench.labs import all_class_frames
 from bicubic_interpolation_model_tpu_torch.models.inference import (
     _tail_operands)
 from bicubic_interpolation_model_tpu_torch.ops import adaptive_fused as adf
@@ -196,6 +199,119 @@ def test_tail_kernels_share_the_tensor_core_header():
         assert '#include "tail_mma.cuh"' in text
         assert "mma_chunk" in text and "cp_async16" in text
     assert "tail_mma.cuh" in [p.name for p in build.CSRC.glob("*.cu*")]
+
+
+# mangled names of the seven kernel templates, with and without the last
+# probe argument of D, E and G: as nvcc names them in the anonymous
+# namespace of csrc/*.cu (cuobjdump listings of the built library, with the
+# probe argument, and of its previous revision, without), and as g++ names
+# the same templates outside any namespace
+_NV = "_ZN{}_GLOBAL__N__{}_cu_{}"
+MANGLED = [
+    (_NV.format(44, "4396e625_11_adaptive", "0811eedf15adaptive_kernel")
+     + "ILi1ELb0ELb0ELi5EEEvPKhPKfS4_S4_PhS5_iiiiii",
+     "adaptive_kernel<1,0,0,5>"),
+    (_NV.format(44, "4396e625_11_adaptive", "0811eedf15adaptive_kernel")
+     + "ILi4ELb1ELb0ELi0EEEvPKhPKfS4_S4_PhS5_iiiiii",
+     "adaptive_kernel<4,1,0,0>"),
+    (_NV.format(46, "9b52cb11_13_interleave", "9eda1a0317interleave_kernel")
+     + "ILi0EEEvPKjPjiii", "interleave_kernel<0>"),
+    (_NV.format(46, "9b52cb11_13_interleave", "9eda1a0317interleave_kernel")
+     + "ILi4EEEvPKjPjiii", "interleave_kernel<4>"),
+    (_NV.format(51, "0296182d_18_packed_tail_map",
+                "dd63745722packed_tail_map_kernel")
+     + "ILb0EfLi3EEEvPKT0_PKfS5_S5_Pjiiiiii",
+     "packed_tail_map_kernel<0,float,3>"),
+    (_NV.format(51, "0296182d_18_packed_tail_map",
+                "dd63745722packed_tail_map_kernel")
+     + "ILb1E13__nv_bfloat16Li0EEEvPKT0_PKfS6_S6_Pjiiiiii",
+     "packed_tail_map_kernel<1,bf16,0>"),
+    (_NV.format(49, "089fbe9f_16_resize_banded",
+                "6acf633f20resize_banded_kernel")
+     + "ILi4ELb1EEEvPKNS_4ElemIXT0_EE4typeEPKfS7_PK4int2SA_PS3_NS_8GeometryE",
+     "resize_banded_kernel<4,1>"),
+    (_NV.format(46, "ba66e9c1_13_resize_mxu", "5fef4faa18resize_plan_kernel")
+     + "ILi1ELb1EEEvPKNS_4ElemIXT0_EE4typeEPKfPKiS9_S7_S9_S9_PS3_NS_8GeometryE",
+     "resize_plan_kernel<1,1>"),
+    (_NV.format(48, "b977c4d3_15_resize_phase",
+                "19def59019resize_phase_kernel")
+     + "ILi4ELb1ELb0ELi3EEEvPKNS_4ElemIXT0_EE4typeEPKfS7_PS3_NS_8GeometryE",
+     "resize_phase_kernel<4,1,0,3>"),
+    (_NV.format(48, "b977c4d3_15_resize_phase",
+                "19def59019resize_phase_kernel")
+     + "ILi1ELb1ELb1ELi0EEEvPKNS_4ElemIXT0_EE4typeEPKfS7_PS3_NS_8GeometryE",
+     "resize_phase_kernel<1,1,1,0>"),
+    ("_ZN47_GLOBAL__N__8c8101ee_14_packed_tail_cu_1bf3c40924packed_tail_"
+     "fused_kernelILb0EfEEvPKT0_PKfS5_S5_S5_S5_S5_S5_S5_Pjiiii",
+     "packed_tail_fused_kernel<0,float>"),
+    ("_ZN47_GLOBAL__N__8c8101ee_14_packed_tail_cu_1bf3c40924packed_tail_"
+     "fused_kernelILb1E13__nv_bfloat16EEvPKT0_PKfS6_S6_S6_S6_S6_S6_S6_"
+     "Pjiiii", "packed_tail_fused_kernel<1,bf16>"),
+    ("_ZN51_GLOBAL__N__0296182d_18_packed_tail_map_cu_dd63745722packed_"
+     "tail_map_kernelILb0EfEEvPKT0_PKfS5_S5_Pjiiiiii",
+     "packed_tail_map_kernel<0,float>"),
+    ("_ZN51_GLOBAL__N__0296182d_18_packed_tail_map_cu_dd63745722packed_"
+     "tail_map_kernelILb1E13__nv_bfloat16EEvPKT0_PKfS6_S6_Pjiiiiii",
+     "packed_tail_map_kernel<1,bf16>"),
+    ("_Z24packed_tail_fused_kernelILb0EfEvPKT0_PKfPji",
+     "packed_tail_fused_kernel<0,float>"),
+    ("_Z24packed_tail_fused_kernelILb1E13__nv_bfloat16EvPKT0_PKfPji",
+     "packed_tail_fused_kernel<1,bf16>"),
+    ("_Z22packed_tail_map_kernelILb0EfLi0EEvPKT0_PKfPji",
+     "packed_tail_map_kernel<0,float,0>"),
+    ("_Z22packed_tail_map_kernelILb1E13__nv_bfloat16Li3EEvPKT0_PKfPji",
+     "packed_tail_map_kernel<1,bf16,3>"),
+    ("_Z15adaptive_kernelILi4ELb0ELb0ELi5EEvPKhPhi",
+     "adaptive_kernel<4,0,0,5>"),
+    ("_Z15adaptive_kernelILi1ELb1ELb1ELi0EEvPKhPhi",
+     "adaptive_kernel<1,1,1,0>"),
+    ("_Z15adaptive_kernelILi4ELb0ELb0EEvPKhPhi", "adaptive_kernel<4,0,0>"),
+    ("_Z19resize_phase_kernelILi4ELb1ELb1EEvPKvi",
+     "resize_phase_kernel<4,1,1>"),
+    ("_Z17interleave_kernelILi4EEvPKjPji", "interleave_kernel<4>"),
+    ("_Z17interleave_kernelILin1EEvPKjPji", "interleave_kernel<-1>"),
+    ("_Z18resize_plan_kernelILi3ELb0EEvPKvi", "resize_plan_kernel<3,0>"),
+    ("_Z19resize_phase_kernelILi4ELb1ELb0ELi0EEvPKvi",
+     "resize_phase_kernel<4,1,0,0>"),
+    ("_Z19resize_phase_kernelILi4ELb1ELb1ELi2EEvPKvi",
+     "resize_phase_kernel<4,1,1,2>"),
+    ("_Z20resize_banded_kernelILi4ELb1EEvPKvi", "resize_banded_kernel<4,1>"),
+    ("bim_resize_phase", "bim_resize_phase"),
+    ("_Z15adaptive_kernelILi4", "_Z15adaptive_kernelILi4"),
+]
+
+
+@pytest.mark.parametrize("mangled,name", MANGLED)
+def test_kernel_instance_reads_every_template_argument(mangled, name):
+    """The build line and the SASS comparison name an instance by all of
+    its template arguments, the last one too, nested or not; a name that
+    is no templated kernel, or is cut short, stays as it is."""
+    from bicubic_interpolation_model_tpu_torch.runtime import build
+    assert build.kernel_instance(mangled) == name
+
+
+def test_ptxas_summary_names_each_instance():
+    from bicubic_interpolation_model_tpu_torch.runtime import build
+    fused = next(m for m, name in MANGLED
+                 if name == "packed_tail_fused_kernel<0,float>")
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '" + fused
+        + "' for 'sm_90a'",
+        "ptxas info    : Function properties for " + fused,
+        "    64 bytes stack frame, 60 bytes spill stores, 60 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 64 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z15adaptive_kernelILi4"
+        "ELb0ELb0ELi5EEvPKhPhi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 79 registers, used 1 barriers"])
+    assert build.ptxas_summary(log) == [
+        "packed_tail_fused_kernel<0,float>: 128 registers, used 1 barriers,"
+        " 64 bytes cumulative stack size; 64 bytes stack frame, 60 bytes "
+        "spill stores, 60 bytes spill loads",
+        "adaptive_kernel<4,0,0,5>: 79 registers, used 1 barriers; 0 bytes "
+        "stack frame, 0 bytes spill stores, 0 bytes spill loads"]
 
 
 @pytest.mark.cuda
@@ -1039,3 +1155,169 @@ def test_check_parity_at_the_bench_geometry_on_card(cuda, impl):
     from bicubic_interpolation_model_tpu_torch.bench import suite
     assert suite.check_parity(4, "bicubic", impl=impl, h=1080,
                               w=1920) <= 1
+
+
+# ---- the probe instances of kernels D, E and G (bench/labs.py) ----------
+
+
+def test_probe_entry_points_are_bound_and_cpu_probes_launch_nothing():
+    """Each probed source has its second C entry point, bound beside the
+    seven production ones; on CPU tensors the probe wrappers run their plain
+    versions and count nothing."""
+    from bicubic_interpolation_model_tpu_torch.bench import labs
+    from bicubic_interpolation_model_tpu_torch.runtime import build
+    names = {"bim_resize_phase_probe": "resize_phase.cu",
+             "bim_adaptive_probe": "adaptive.cu",
+             "bim_packed_tail_map_probe": "packed_tail_map.cu"}
+    assert set(build._PROBE_SIGNATURES) == set(names)
+    for symbol, src in names.items():
+        assert f"int {symbol}(" in (build.CSRC / src).read_text()
+    before = labs.read_counts()
+    x = _frames(3, 1, 9, 13, 4)
+    for case in (labs.d_cases(x) + labs.e_cases([x, x[..., :1]])
+                 + labs.g_cases(*_map_args(5, 9, 4, "zero", seed=3))):
+        err, ok = case.check(case.run(case.x), case.plain(case.x))
+        assert ok and err == 0, case.name
+    assert labs.read_counts() == before
+
+
+def _probe_cases(kernel, dev):
+    from bicubic_interpolation_model_tpu_torch.bench import labs
+    if kernel == "D":
+        return labs.d_cases(_frames(11, 2, 37, 70, 4, dev))
+    if kernel == "E":
+        x = _all_class_frames(12, 2, 40, 70, 4, dev)
+        return labs.e_cases([x, x[..., :1].contiguous()])
+    return labs.g_cases(*_map_args(19, 37, 4, "zero", seed=13, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["D", "E", "G"])
+def test_probe_instances_match_plain_on_card(cuda, kernel):
+    """Every probe instance of a kernel (and its production instances) on
+    the card against its plain version at the labs' tolerances
+    (bench/labs.py), one launch counted per call."""
+    for case in _probe_cases(kernel, cuda):
+        n0 = case.launches()
+        got = case.run(case.x)
+        torch.cuda.synchronize()
+        assert case.launches() == n0 + 1, case.name
+        err, ok = case.check(got, case.plain(case.x))
+        assert ok, (case.name, err)
+
+
+def production_digests(dev) -> dict:
+    """sha256 of the production instances' outputs of all seven kernels on
+    seeded inputs (the same inputs for every revision of the port)."""
+    import hashlib
+    out = {}
+
+    def put(name, t):
+        out[name] = hashlib.sha256(
+            t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+    args = _tail_args(24, 40, 4, seed=71, device=dev)
+    put("a_f32", pt.packed_tail_fused(*args, layout="planar"))
+    put("a_bf16", pt.packed_tail_fused(args[0].to(torch.bfloat16),
+                                       *args[1:], layout="planar"))
+    rng = np.random.default_rng(72)
+    planar = torch.from_numpy(rng.integers(0, 2 ** 32, (4, 96, 40),
+                                           dtype=np.uint32)).to(dev)
+    put("b", ilv.interleave_planar_u32(planar))
+    img = _frames(73, 2, 43, 70, 4, dev)
+    for scale in (2.5, 4):
+        put(f"c_{scale}", mxu.resize_mxu(img, scale))
+    put("c_f32", mxu.resize_mxu(img.float() / 3, 3))
+    for layout in ("hwc", "planar"):
+        put(f"d_{layout}", phase.resize_phase(img, 4, layout=layout))
+    put("d_lanczos_3", phase.resize_phase(img[..., :3], 3, "lanczos"))
+    put("d_f32", phase.resize_phase(img.float() / 3, 2))
+    frames = _all_class_frames(74, 2, 40, 70, 4, dev)
+    for c in (4, 3, 2, 1):
+        x = frames[..., :c].contiguous()
+        put(f"e_c{c}", adf.adaptive_resize_fused(x, 4))
+        put(f"e_c{c}_planar", adf.adaptive_resize_fused(x, 4,
+                                                        layout="planar"))
+    put("e_passes", adf.adaptive_resize_fused(frames, 4, stage_phases=4))
+    opaque = frames.clone()
+    opaque[..., 3] = 255
+    put("e_opaque", adf.adaptive_resize_fused(opaque, 3, opaque_alpha=True))
+    put("f", banded.resize_banded(img, 4))
+    put("f_lanczos", banded.resize_banded(img, 3, "lanczos"))
+    for halo in ("zero", "rows"):
+        m, lr, kout, bout = _map_args(19, 37, 4, halo, seed=75, device=dev)
+        put(f"g_{halo}", pt.packed_tail(m, lr, kout, bout, layout="planar",
+                                        halo=halo))
+        put(f"g_{halo}_bf16", pt.packed_tail(
+            m.to(torch.bfloat16), lr, kout, bout, layout="planar",
+            halo=halo))
+    return out
+
+
+# sha256 of production_digests' outputs, recorded on an NVIDIA H100 80GB
+# HBM3 from the port as it was before the probe instances were added
+# (every kernel source then held only its production instances)
+PRODUCTION_SHA256 = {
+    "a_f32": "337891d6a9a0939aca2ba1d0dc39f7c5"
+        "abe3c61bf52a7badc04339defdbd9cc7",
+    "a_bf16": "e6447780a9409cf0f098e359bc2996e4"
+        "00767681b6f421241a48cdaaa77f6663",
+    "b": "43628bc89f1a211161f3cf1d4d84efe3"
+        "c73f74b1b821f8f35621654234b74ae4",
+    "c_2.5": "2c2612f14ac290476b715493b7635015"
+        "a359d934a8b96a6dc7fd528e6989924c",
+    "c_4": "8e4ddd20ebd11b1cff10ee415c8c3dff"
+        "db956afe7cd4838cb111ccfb4a94559b",
+    "c_f32": "72b30c2e6e89228211c69d6b6c447938"
+        "327197c94e0ff7c80880ca5d0b797144",
+    "d_hwc": "8e4ddd20ebd11b1cff10ee415c8c3dff"
+        "db956afe7cd4838cb111ccfb4a94559b",
+    "d_planar": "7f9656965b225963cb7f678ef95128bf"
+        "990235f2b0b81204083e2d6be8198760",
+    "d_lanczos_3": "e3b8bec6d17d739142cade3afbfdce1b"
+        "0adffb572619c288f6d62bbd03aa4993",
+    "d_f32": "99ebdcc8842051f6413fe7789fa86789"
+        "cc848c79de3ecebe143ebc44df223d9b",
+    "e_c4": "6c51cac5bc5d0119ad632017a5ef27cf"
+        "f9e9ade11514732aef0bdf36a0a5f2e3",
+    "e_c4_planar": "93781ded00840948bdba6861da3a98f5"
+        "a153a2e3220c1059d9eb9d1fd89de2cb",
+    "e_c3": "c4e067a05363b306a7ac4b3c286b47e9"
+        "c3fe9b993b75efe0117c8d0e00b5df96",
+    "e_c3_planar": "a3632b2da55e537f2a5811238415f938"
+        "542b7194b08b484a744d766031d393fe",
+    "e_c2": "9a7644b68bae50b1ff806963464d37d0"
+        "fe5d3617716cbe252117a4a7adeea92f",
+    "e_c2_planar": "c4e4c6d5bdb5ce16419bbe64d640aafa"
+        "dd11682227c10d3c3d0ea9ad30c9d7ea",
+    "e_c1": "dec242cdee6150c35b2ef582708e1695"
+        "d0fceeba7191110fc9929dab0c0aff2f",
+    "e_c1_planar": "861e0f27228f011147f5fe938b2ecd03"
+        "97d2b03752f84f8e64f26c7842b8a0e1",
+    "e_passes": "6c51cac5bc5d0119ad632017a5ef27cf"
+        "f9e9ade11514732aef0bdf36a0a5f2e3",
+    "e_opaque": "5800699e806afc8217d232987f9bebc7"
+        "c85c52b525fa8b9834ed408b47dc0c86",
+    "f": "39266aaa2b27c55da915e8632ec78547"
+        "b17d930e0959073fa6a0b195b0f68332",
+    "f_lanczos": "ef6924f2e10f660dc47d708ab72f5095"
+        "b7ab1a506d96ef353edeb2ec13659ea2",
+    "g_zero": "43074650fd34602b13707d466756b088"
+        "c42415bbb99893dc373237bab7fddc8a",
+    "g_zero_bf16": "35986a811a4ed5d1b56980943ffc5ac0"
+        "1a8ce087a3dd32356d7d752136302f51",
+    "g_rows": "73d54f504818ccc53845841704ecc08f"
+        "c94c17cb431214705592194ea13ce0ec",
+    "g_rows_bf16": "9e6100e12f96dba846a0d8a923e57cc7"
+        "1ec6898049ded4e9c815747b519615f5",
+}
+
+
+@pytest.mark.cuda
+def test_production_instances_match_recorded_bytes_on_card(cuda):
+    """Every production instance of the seven kernels gives the bytes it
+    gave before the probes were added to kernels D, E and G, on the same
+    seeded inputs."""
+    got = production_digests(cuda)
+    assert got.keys() == PRODUCTION_SHA256.keys()
+    assert {k for k in got if got[k] != PRODUCTION_SHA256[k]} == set()

@@ -123,11 +123,16 @@ def test_needs_a_card_unless_cpu_is_asked():
 
 
 def test_port_imports_nothing_of_jax():
-    """Importing every module of the port, and the port's bench script
-    ``bench_torch.py``, leaves jax, flax, optax, msgpack and the JAX
-    package out of sys.modules (names matched exactly: the port's own
-    package shares the JAX package's prefix)."""
-    mods = ["bench_torch"]
+    """Importing every module of the port, the port's bench script
+    ``bench_torch.py`` and its lab scripts ``scripts/torch_*_lab.py``
+    leaves jax, flax, optax, msgpack and the JAX package out of sys.modules
+    (names matched exactly: the port's own package shares the JAX
+    package's prefix)."""
+    labs = ["torch_kernel_lab", "torch_mxu_lab", "torch_packed_tail_lab",
+            "torch_adaptive_lab", "torch_adaptive_probe_lab"]
+    assert sorted(p.stem for p in (ROOT / "scripts").glob(
+        "torch_*_lab.py")) == sorted(labs)
+    mods = ["bench_torch", *labs]
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
             "*.py")):
         parts = p.relative_to(ROOT).with_suffix("").parts
@@ -135,6 +140,7 @@ def test_port_imports_nothing_of_jax():
                              else parts))
     code = (
         "import importlib, sys\n"
+        "sys.path.insert(1, 'scripts')\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "banned = ('jax', 'flax', 'optax', 'msgpack', "
