@@ -328,8 +328,9 @@ def lab_device(cpu: bool) -> tuple[torch.device, str]:
     if cpu:
         return torch.device("cpu"), "cpu (no card: nothing measured)"
     if not torch.cuda.is_available():
-        raise RuntimeError("the labs run on the card: no CUDA device is "
-                           "visible (pass --cpu to check the plain versions)")
+        raise RuntimeError("these scripts run on the card: no CUDA device "
+                           "is visible (pass --cpu to run the plain "
+                           "versions)")
     return torch.device("cuda"), card()
 
 

@@ -22,13 +22,15 @@ which builds and uploads them, is timed apart (``plan_build_ms``).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import os
 import time
 
 import numpy as np
 import torch
 
-from ..core.oracle import resize_oracle, resize_oracle_rows
+from ..core.oracle import resize_oracle_rows
 from ..core.plan import out_size
 from ..ops.resize import resize
 from ..runtime.device import resolve_device
@@ -121,18 +123,100 @@ def _make_input(h, w, c=4, seed=0):
     return img
 
 
+def parity_rows(n_rows: int, row_stride: int | None = None) -> np.ndarray:
+    """The output rows a parity check compares: all of them, or every
+    ``row_stride``-th where given, and by default every 67th where the
+    output is taller than 4096 rows (67 is coprime to every tile extent:
+    each row spans the full width, so all column-tile boundaries, and the
+    stride walks every row-tile phase)."""
+    if row_stride is None:
+        row_stride = 67 if n_rows > 4096 else 1
+    return np.arange(0, n_rows, row_stride)
+
+
+#: output rows of the oracle per job: bounds a job's float64
+#: intermediates (~0.5 GB at 15360 output pixels of 4 channels)
+ORACLE_ROWS_PER_JOB = 128
+
+
+@dataclasses.dataclass
+class ParityCase:
+    """One resized frame to hold to the oracle: its uint8 HWC input
+    ``img``, ``scale``, the compared output ``rows`` and those rows of the
+    frame on the host, ``got`` uint8 [len(rows), Wo, C]."""
+    img: np.ndarray
+    scale: float
+    rows: np.ndarray
+    got: np.ndarray
+
+
+def parity_case(img, scale, got, row_stride=None) -> ParityCase:
+    """A :class:`ParityCase` of ``got``, the frame resized from the host
+    image ``img`` (a tensor on any device or an array, HWC [Ho, Wo, C] or
+    flat [Ho, Wo*C]): :func:`parity_rows`' rows, gathered on ``got``'s
+    device before the copy."""
+    h, w, c = img.shape
+    n_rows, n_cols = out_size(h, float(scale)), out_size(w, float(scale))
+    rows = parity_rows(n_rows, row_stride)
+    got = torch.as_tensor(got)
+    sel = got.index_select(0, torch.from_numpy(rows).to(got.device))
+    sel = sel.cpu().numpy().reshape(len(rows), -1)[:, :n_cols * c]
+    return ParityCase(img, float(scale), rows,
+                      sel.reshape(len(rows), n_cols, c))
+
+
+def oracle_deltas(cases, method="bicubic") -> list:
+    """Max u8 delta of each :class:`ParityCase` against the float64
+    oracle, which evaluates the case's rows alone (``resize_oracle_rows``,
+    exact: the axes are separable) in jobs of ``ORACLE_ROWS_PER_JOB`` rows,
+    on one thread per CPU core (NumPy's loops release the GIL)."""
+    jobs = [[(case.img, case.scale, case.rows[i:i + ORACLE_ROWS_PER_JOB],
+              method) for i in range(0, len(case.rows), ORACLE_ROWS_PER_JOB)]
+            for case in cases]
+    flat = [j for js in jobs for j in js]
+    job = lambda args: resize_oracle_rows(*args)
+    workers = os.cpu_count() or 1
+    if workers > 1 and len(flat) > 1:
+        import concurrent.futures
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            wants = list(pool.map(job, flat))
+    else:
+        wants = [job(j) for j in flat]
+    deltas, k = [], 0
+    for js, case in zip(jobs, cases):
+        want = np.concatenate(wants[k:k + len(js)])
+        k += len(js)
+        deltas.append(int(np.abs(case.got.astype(np.int64)
+                                 - want.astype(np.int64)).max()))
+    return deltas
+
+
+def _impl_output(impl, x, scale, method, dev):
+    """``impl`` (the JAX package's names, see :func:`check_parity`) on the
+    HWC tensor ``x``."""
+    h, w, c = x.shape
+    if impl == "pallas_mxu":
+        from ..ops.mxu import resize_mxu
+        return resize_mxu(x[None], float(scale), method, layout="flat")[0]
+    if impl == "pallas_phase_planar":
+        from ..ops.phase import interleave_planar, resize_phase
+        planar = resize_phase(x[None], int(scale), method, layout="planar")
+        return interleave_planar(planar, h, w, int(scale), c)[0]
+    return resize(x, scale, method, impl=impl, device=dev)
+
+
 def check_parity(scale=4, method="bicubic", impl="auto", h=96, w=64,
-                 row_stride: int | None = None, *, device="cuda"):
-    """Max u8 delta between the device path and the float64 oracle.
+                 row_stride: int | None = None, *, c: int = 4,
+                 device="cuda"):
+    """Max u8 delta between the device path and the float64 oracle, on
+    :func:`_make_input`'s seeded ``h`` x ``w`` frame of ``c`` channels.
 
     Run at the FULL bench geometry (e.g. h=1080, w=1920) on the card so the
     parity gate covers the measured tile decomposition, not a toy one.
     Outputs taller than 4096 rows are compared at every ``row_stride``-th
-    row (67 by default, coprime to every tile extent: each row spans the
-    full width, so all column-tile boundaries, and the stride walks every
-    row-tile phase), gathered on the device before the copy; the oracle
-    evaluates those rows alone (``resize_oracle_rows``). Exhaustive at
-    small geometries.
+    row (67 by default; :func:`parity_rows`), gathered on the device
+    before the copy; the oracle evaluates those rows alone
+    (:func:`oracle_deltas`). Exhaustive at small geometries.
 
     ``impl`` takes the JAX package's names: ``pallas_mxu`` is kernel C
     (``ops/mxu``, flat layout), ``pallas_phase`` kernel D,
@@ -141,29 +225,11 @@ def check_parity(scale=4, method="bicubic", impl="auto", h=96, w=64,
     ``matmul``, ``phase`` and ``auto`` go through ``ops/resize.resize``.
     On the CPU the kernels' names run their plain versions."""
     dev = resolve_device(device)
-    img = _make_input(h, w)
-    x = torch.from_numpy(img).to(dev)
-    c = img.shape[-1]
-    n_rows, n_cols = out_size(h, float(scale)), out_size(w, float(scale))
-    if impl == "pallas_mxu":
-        from ..ops.mxu import resize_mxu
-        got_dev = resize_mxu(x[None], float(scale), method, layout="flat")[0]
-    elif impl == "pallas_phase_planar":
-        from ..ops.phase import interleave_planar, resize_phase
-        planar = resize_phase(x[None], int(scale), method, layout="planar")
-        got_dev = interleave_planar(planar, h, w, int(scale), c)[0]
-    else:
-        got_dev = resize(x, scale, method, impl=impl, device=dev)
-    if row_stride is None:
-        row_stride = 67 if n_rows > 4096 else 1   # 67 is coprime to 2^k tiles
-    rows = np.arange(0, n_rows, row_stride)
-    if row_stride > 1:
-        want = resize_oracle_rows(img, float(scale), rows, method)
-        got_dev = got_dev.index_select(0, torch.from_numpy(rows).to(dev))
-    else:
-        want = resize_oracle(img, float(scale), method)
-    got = got_dev.cpu().numpy()[:, :n_cols * c].reshape(len(rows), n_cols, c)
-    return int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+    img = _make_input(h, w, c)
+    got = _impl_output(impl, torch.from_numpy(img).to(dev), scale, method,
+                       dev)
+    return oracle_deltas([parity_case(img, scale, got, row_stride)],
+                         method)[0]
 
 
 def _resize_for_impl(impl, scale, method, weight_cache):
@@ -192,7 +258,7 @@ def _host_ms(fn, sync) -> float:
 
 
 def bench_resize_ondevice(h, w, scale, method="bicubic", impl="pallas",
-                          k_lo=5, k_hi=50, reps=2, *, device="cuda"):
+                          k_lo=5, k_hi=50, reps=2, *, c=4, device="cuda"):
     """Per-frame seconds via the chained-K slope of CUDA-event timings (see
     the module docstring), on the card.
 
@@ -200,10 +266,11 @@ def bench_resize_ondevice(h, w, scale, method="bicubic", impl="pallas",
     first call, which builds and uploads the plans, less a warm call; host
     clock with the fence) and ``ms_per_frame_with_fetch``: the median of
     five served frames, each a host frame uploaded, resized and fetched
-    into pinned memory (``serving._fetch``), on the host clock."""
+    into pinned memory (``serving._fetch``), on the host clock. The frame
+    is :func:`_make_input`'s, of ``c`` channels."""
     from ..serving import _fetch
     dev = resolve_device(device)
-    frame = _make_input(h, w)
+    frame = _make_input(h, w, c)
     img = _on_card(torch.from_numpy(frame).to(dev))
     cache: dict = {}
     fn = _resize_for_impl(impl, scale, method, cache)

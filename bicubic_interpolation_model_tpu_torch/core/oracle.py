@@ -121,7 +121,8 @@ def resize_oracle_loops(img_u8: np.ndarray, scale: float, a: float = -0.5) -> np
     return out
 
 
-def adaptive_bicubic_oracle(img_u8: np.ndarray, scale: float, a: float = -0.5) -> np.ndarray:
+def adaptive_bicubic_oracle(img_u8: np.ndarray, scale: float, a: float = -0.5,
+                            rows: np.ndarray | None = None) -> np.ndarray:
     """Vectorized float64 replica of ``ultimateBicubicInterpolation``
     (adaptive_bicubic_super_resolution.js:10-145).
 
@@ -130,6 +131,9 @@ def adaptive_bicubic_oracle(img_u8: np.ndarray, scale: float, a: float = -0.5) -
     preserved: BT.709 luma from the *raw* u8 channels; the cubic weight is
     memoized on |t| rounded to 2 decimals (toFixed(2)); the center tap
     (px==centerX and py==centerY) is NOT modulated.
+
+    ``rows`` (output row indices) evaluates those rows alone: each output
+    pixel is computed from its own coordinates, so they are exact.
     """
     h, w, c = img_u8.shape
     nh, nw = out_size(h, scale), out_size(w, scale)
@@ -146,7 +150,10 @@ def adaptive_bicubic_oracle(img_u8: np.ndarray, scale: float, a: float = -0.5) -
     is_flat = variance < 10.0
     is_edge = variance > 50.0
 
-    oy = np.arange(nh, dtype=np.float64) / scale
+    if rows is not None:
+        nh = len(rows)
+    oy = (np.arange(nh) if rows is None else np.asarray(rows)) \
+        .astype(np.float64) / scale
     ox = np.arange(nw, dtype=np.float64) / scale
     y0 = np.floor(oy).astype(np.int64) - 1
     x0 = np.floor(ox).astype(np.int64) - 1

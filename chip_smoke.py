@@ -1398,6 +1398,192 @@ def labs_path(dev, name_power):
             for n, r in rows.items() if r["case"].probe != "full"]
 
 
+def config_bound(key, row):
+    """(bound ms per frame, or per batch for the mixed batch, by what) of
+    a configs or latency row: :func:`resize_bound` of its frames at 4
+    taps a pass (bicubic)."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    if key == "c3_batch64_mixed":
+        _, h, w, c = row["batch"]
+        parts = [resize_bound(n, h, w, c, h * s, w * s, 4, 1)
+                 for s, n in row["buckets"]]
+        nbytes = sum(pt[2] for pt in parts)
+        flops = sum(pt[3] for pt in parts)
+    elif key == "c6_mixed_size_stream":
+        s = row["scale"]
+        parts = [resize_bound(1, h, w, 4, h * s, w * s, 4, 1)
+                 for h, w in (map(int, hw.split("x")) for hw in row["sizes"])]
+        nbytes = sum(pt[2] for pt in parts) / len(parts)
+        flops = sum(pt[3] for pt in parts) / len(parts)
+    else:
+        if "shape" in row:
+            h, w, s = map(int, row["shape"].split("x"))
+        else:
+            h = w = int(key.split("x")[0])
+            s = cf.LATENCY_SCALE
+        c = row.get("c", 4)
+        _, _, nbytes, flops = resize_bound(1, h, w, c, h * s, w * s, 4, 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def brief(row, keys):
+    """The keys of ``row`` that a phase line prints, and its launches
+    other than 0 (per drive where a row has several)."""
+    out = {k: row[k] for k in keys if k in row}
+    nonzero = lambda d: {n: v for n, v in d.items() if v}
+    ls = row.get("launches")
+    if ls is not None:
+        out["launches"] = ({m: nonzero(d) for m, d in ls.items()}
+                           if isinstance(next(iter(ls.values())), dict)
+                           else nonzero(ls))
+    return out
+
+
+def crop_vs_plain(mxu, phase, dev):
+    """Every kernel configuration of the configs, latency and rational
+    rows on a crop of its seeded input (ragged to the tiles), held to the
+    kernel's plain version on the card: (cases, max u8, largest share of
+    differing bytes)."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    from bicubic_interpolation_model_tpu_torch.bench import suite
+    cases = []
+    for key, (h, w, s) in cf.CONFIGS.items():
+        for c in ((4, 1) if key == "c1_256_gray_2x" else (4,)):
+            x = suite._make_input(h, w, c)[None, :67, :131]
+            cases += [("C", x, s), ("D", x, s)]
+    one = suite._make_input(256, 256)[:37, :45]
+    cases.append(("C", np.stack([one ^ np.uint8(i) for i in range(8)]), 2))
+    batch, o = cf.mixed_batch(), 0
+    for s, n in cf.MIXED_BUCKETS:
+        cases.append(("D", batch[o:o + n, :37, :45], s))
+        o += n
+    cases += [("D", f[None, :h // 16 + 3, :w // 16 + 5], 2)
+              for f, (h, w) in zip(cf.mixed_size_frames(), cf.MIXED_SIZES)]
+    cases += [("C", suite._make_input(n // 4 + 3, n // 4 + 5)[None], 4)
+              for n in cf.LATENCY_SIZES[:2]]
+    cases += [("C", suite._make_input(61, 131)[None], sc)
+              for sc in (1.5, 2.5)]
+    worst, share = 0, 0.0
+    for kernel, x, s in cases:
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        cache = {}
+        if kernel == "C":
+            got = mxu.resize_mxu(x, s, weight_cache=cache)
+            ref = mxu.resize_mxu_reference(
+                x, *next(iter(cache.values()))[:4])
+        else:
+            got = phase.resize_phase(x, s, weight_cache=cache)
+            wrow, wcol, taps, left = next(iter(cache.values()))[:4]
+            ref = phase.resize_phase_reference(x, wrow, wcol, s, taps, left)
+        mx, sh = diff_u8(got, ref)
+        worst, share = max(worst, mx), max(share, sh)
+    return len(cases), worst, share
+
+
+def measurement_paths(dev, name_power, zero_counts, read_counts):
+    """The measurement scripts' paths (``bench/configs``,
+    ``bench/methods``), each driven with the seven kernels' counts at 0
+    and read after: ``configs`` (every BASELINE row at its full geometry,
+    3840x2160 RGBA -> 4x through kernels C and D included, each output held
+    to the float64 oracle: every 67th row above 4096 rows, every row
+    otherwise; launches per row as expected, C and D launched, no other
+    kernel), ``latency_curve`` (NxN -> 4x through C, single and
+    micro-batched) and ``method_throughput`` (its ``rational`` and
+    ``downsample`` sections, each resize output held to the oracle on the
+    frame it times, launches exactly as expected). Then each kernel configuration on a crop
+    against its plain version on the card, and one ``fill_`` of the 4K
+    output (the store floor). Prints one line per phase."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    from bicubic_interpolation_model_tpu_torch.bench import methods
+    from bicubic_interpolation_model_tpu_torch.ops import mxu, phase
+    from bicubic_interpolation_model_tpu_torch.serving import Upscaler
+    others = lambda c: {k: v for k, v in c.items()
+                        if k not in ("resize_mxu", "resize_phase") and v}
+    keys = ("impl", "c", "ms_per_frame", "seconds", "gpix_per_s",
+            "max_u8_delta", "plan_build_ms", "fps",
+            "pallas_mxu_gpix_per_s", "pallas_phase_gpix_per_s")
+
+    t0 = time.perf_counter()
+    zero_counts()
+    table = cf.run_configs(dev=dev, card=name_power)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rows = table["configs"]
+    bad = cf.failures(rows, True)
+    h, w, s = cf.CONFIGS["c4_4k_4x"]
+    out4k = torch.empty((h * s, w * s, 4), dtype=torch.uint8, device=dev)
+    floor_ms = time_ms(lambda: out4k.fill_(7))
+    del out4k
+    lines = {}
+    for key, row in rows.items():
+        lines[key] = brief(row, keys)
+        lines[key]["bound_ms"], lines[key]["bound_by"] = config_bound(key,
+                                                                      row)
+        if "candidates" in row:
+            lines[key]["candidates"] = {
+                i: brief(cd, ("ms_per_frame", "gpix_per_s", "max_u8_delta",
+                              "plan_build_ms", "ms_per_frame_with_fetch"))
+                for i, cd in row["candidates"].items()}
+    emit({"phase": "configs", "card": name_power, "rows": lines,
+          "store_floor_4k_ms": floor_ms, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if bad or others(counts) or not (counts["resize_mxu"]
+                                     and counts["resize_phase"]):
+        raise AssertionError(f"configs: {bad}, launches {counts}")
+
+    t0 = time.perf_counter()
+    zero_counts()
+    table = cf.run_latency_curve(Upscaler.MICROBATCH_THRESHOLD_PX, dev=dev,
+                                 card=name_power)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rows = table["rows"]
+    bad = cf.failures(rows, True)
+    lines = {}
+    for key, row in rows.items():
+        lines[key] = brief(row, ("single_ms", "single_gpix_s", "microbatch",
+                                 "batched_ms_per_frame", "batched_gpix_s",
+                                 "policy_batches", "batching_faster",
+                                 "max_u8_delta", "plan_build_ms"))
+        lines[key]["bound_ms"] = config_bound(key, row)[0]
+    emit({"phase": "latency_curve", "card": name_power,
+          "microbatch_threshold_px": Upscaler.MICROBATCH_THRESHOLD_PX,
+          "rows": lines, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if bad or others(counts) or counts["resize_phase"] \
+            or not counts["resize_mxu"]:
+        raise AssertionError(f"latency_curve: {bad}, launches {counts}")
+
+    t0 = time.perf_counter()
+    zero_counts()
+    sections = ("rational", "downsample")
+    out = methods.run(sections, dev=dev, card=name_power)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    bad = methods.failures(out, True)
+    lines = {}
+    for key, row in out.items():
+        lines[key] = brief(row, ("impl", "ms_per_frame", "gpix_per_s",
+                                 "max_u8_delta", "plan_build_ms",
+                                 "in_mpix_per_s", "pallas_mxu_gpix_per_s",
+                                 "phase_gpix_per_s", "matmul_gpix_per_s"))
+    emit({"phase": "method_throughput", "card": name_power,
+          "sections": list(sections), "rows": lines, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    if bad or any(v for k, v in counts.items() if k != "resize_mxu") \
+            or not counts["resize_mxu"]:
+        raise AssertionError(f"method_throughput: {bad}, launches {counts}")
+
+    n, mx, share = crop_vs_plain(mxu, phase, dev)
+    emit({"phase": "measurement_crops_vs_plain", "cases": n, "max": mx,
+          "share": share})
+    if mx > 1 or share >= 1e-2:
+        raise AssertionError(f"crops vs plain: {mx} LSB, share {share}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1423,13 +1609,8 @@ def main() -> int:
         ModelUpscaler, Upscaler)
 
     # the launch counts of the seven kernels' wrappers
-    wrappers = {"packed_tail_fused": pt.packed_tail_fused,
-                "packed_tail": pt.packed_tail,
-                "interleave_planar_u32": ilv.interleave_planar_u32,
-                "resize_mxu": mxu.resize_mxu,
-                "resize_phase": phase.resize_phase,
-                "adaptive_resize_fused": adf.adaptive_resize_fused,
-                "resize_banded": banded.resize_banded}
+    from bicubic_interpolation_model_tpu_torch.bench.configs import WRAPPERS
+    wrappers = WRAPPERS
 
     def zero_counts():
         for fn in wrappers.values():
@@ -2090,6 +2271,10 @@ def main() -> int:
         [(x[..., :3].contiguous(),) for (x,) in e_in])
     run_e_plain = rotating(lambda x: adf.adaptive_resize_reference(
         x, *wts_e, 4), e_in)
+    run_e_plain_gray = rotating(lambda x: adf.adaptive_resize_reference(
+        x, *wts_e, 4), [(gray_dev[i:i + 1],) for i in range(2)])
+    run_e_plain_two = rotating(lambda x: adf.adaptive_resize_reference(
+        x, *wts_e, 4), [(two_dev[i:i + 1],) for i in range(2)])
     run_e_graph = rotating(lambda x: adaptive_resize(x[0], 4, impl="jnp"),
                            e_in)
     run_f = rotating(lambda x: banded.resize_banded(
@@ -2106,6 +2291,8 @@ def main() -> int:
     e_rgb_ms = device_ms(run_e_rgb, kernel="adaptive_kernel")
     f_ms = device_ms(run_f, kernel="resize_banded_kernel")
     e_plain = device_ms(run_e_plain, n=2, warmup=1)
+    e_plain_gray = device_ms(run_e_plain_gray, n=2, warmup=1)
+    e_plain_two = device_ms(run_e_plain_two, n=2, warmup=1)
     e_graph = device_ms(run_e_graph, n=2, warmup=1)
     f_plain_ms = device_ms(run_f_plain, n=3, warmup=1)
     torch.cuda.empty_cache()
@@ -2130,11 +2317,13 @@ def main() -> int:
           "adaptive_resize_fused_planar_ms": e_planar_ms,
           "adaptive_resize_fused_opaque_alpha_ms": e_opaque_ms,
           "gray": {"frame": [*HD, 1], "adaptive_resize_fused_ms": e_gray_ms,
+                   "plain_ms_no_yardstick": e_plain_gray,
                    "bound_ms": e_gray_bound[0], "bound_by": e_gray_bound[1],
                    "bytes": e_gray_bound[2], "flops": e_gray_bound[3],
                    "share_texture_flat_edge": gray_share},
           "two_channel": {"frame": [*HD, 2],
                           "adaptive_resize_fused_ms": e_two_ms,
+                          "plain_ms_no_yardstick": e_plain_two,
                           "bound_ms": e_two_bound[0],
                           "bound_by": e_two_bound[1],
                           "bytes": e_two_bound[2], "flops": e_two_bound[3],
@@ -2435,6 +2624,10 @@ def main() -> int:
 
     # 6i. the labs: the probe instances of kernels D, E and G
     probe_entries = labs_path(dev, name_power)
+
+    # 6j. the measurement scripts' paths: kernels C and D at the BASELINE
+    # geometries, the latency curve, per-method throughput
+    measurement_paths(dev, name_power, zero_counts, read_counts)
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [

@@ -44,6 +44,9 @@ def _cases():
                                       id=f"adaptive-x{s}-c{c}"))
     cases.append(pytest.param("adaptive", "adaptive", 2.5, 4,
                               id="adaptive-x2.5-c4"))
+    for s in (2, 3, 4, 2.5):
+        cases.append(pytest.param("adaptive_rows", "adaptive", s, 4,
+                                  id=f"adaptive-rows-x{s}"))
     for s in (2, 3):
         cases.append(pytest.param("loops", "bicubic", s, 3,
                                   id=f"loops-x{s}"))
@@ -79,6 +82,12 @@ def test_port_oracle_byte_equal_to_jax_oracle(kind, method, scale, c):
     elif kind == "adaptive":
         got = to.adaptive_bicubic_oracle(img, scale)
         want = jo.adaptive_bicubic_oracle(img, scale)
+    elif kind == "adaptive_rows":
+        # the port's rows alone equal those rows of the JAX full oracle
+        full = jo.adaptive_bicubic_oracle(img, scale)
+        rows = np.arange(1, full.shape[0], 4)
+        got = to.adaptive_bicubic_oracle(img, scale, rows=rows)
+        want = full[rows]
     else:
         img = img[:5, :6]
         got = to.resize_oracle_loops(img, scale)

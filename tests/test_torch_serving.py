@@ -124,15 +124,19 @@ def test_needs_a_card_unless_cpu_is_asked():
 
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port, the port's bench script
-    ``bench_torch.py`` and its lab scripts ``scripts/torch_*_lab.py``
-    leaves jax, flax, optax, msgpack and the JAX package out of sys.modules
-    (names matched exactly: the port's own package shares the JAX
-    package's prefix)."""
+    ``bench_torch.py``, its lab scripts ``scripts/torch_*_lab.py`` and its
+    measurement scripts ``scripts/torch_{bench_configs,latency_curve,
+    method_throughput,launch_trace}.py`` leaves jax, flax, optax, msgpack and the JAX
+    package out of sys.modules (names matched exactly: the port's own
+    package shares the JAX package's prefix)."""
     labs = ["torch_kernel_lab", "torch_mxu_lab", "torch_packed_tail_lab",
             "torch_adaptive_lab", "torch_adaptive_probe_lab"]
     assert sorted(p.stem for p in (ROOT / "scripts").glob(
         "torch_*_lab.py")) == sorted(labs)
-    mods = ["bench_torch", *labs]
+    measuring = ["torch_bench_configs", "torch_latency_curve",
+                 "torch_method_throughput", "torch_launch_trace"]
+    assert all((ROOT / "scripts" / f"{m}.py").exists() for m in measuring)
+    mods = ["bench_torch", *labs, *measuring]
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
             "*.py")):
         parts = p.relative_to(ROOT).with_suffix("").parts
@@ -164,6 +168,6 @@ def test_port_imports_nothing_of_jax():
                  "train.direct_trainer", "train.mlp_trainer",
                  "parallel.train_sharding", "utils.profiling",
                  "core.oracle", "bench.harness", "bench.suite", "cli.main",
-                 "cli.__main__"):
+                 "cli.__main__", "bench.configs", "bench.methods"):
         assert pkg + name in mods
     assert len(mods) >= 55
