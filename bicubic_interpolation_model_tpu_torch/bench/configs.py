@@ -26,8 +26,15 @@ functions. Every row drives kernel C (``ops/mxu.resize_mxu``) or kernel D
 - ``c5_1080p_2x_stream_served`` (:func:`run_served_stream`):
   ``serving.Upscaler(scale=2).stream()`` over 16 fetched 1080p frames,
   what a user of BASELINE config 5 ("1080p@60fps continuous 2x") sees;
-- the latency curve (:func:`latency_point`): NxN RGBA -> 4x through C,
-  single and micro-batched, at the program-output boundary.
+- the latency curves (:func:`run_latency_curve`), the evidence for
+  ``serving``'s ``MICROBATCH_THRESHOLD_PX``: NxN RGBA -> 4x through C
+  (:func:`latency_point`) and through ``ModelUpscaler`` on
+  :data:`LEARNED_MODEL` (kernels A and B, :func:`learned_point`), one frame
+  a launch against the group ``stream(microbatch="auto")`` makes below its
+  threshold, whatever the threshold now is, at the program-output boundary
+  and as served ``stream()`` frames with their fetches
+  (:func:`served_point`); :func:`threshold_from` derives the threshold
+  from such tables.
 
 Every output is held to the float64 oracle (``core/oracle``) at its full
 geometry: every 67th row of outputs taller than 4096 rows, every row
@@ -42,8 +49,12 @@ nothing is timed and the time keys are None.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import itertools
 import json
 import pathlib
+import re
+import statistics
 import time
 
 import numpy as np
@@ -73,9 +84,23 @@ MIXED_SIZE_SCALE = 2
 STREAM_FRAMES = 16
 LATENCY_SIZES = (128, 256, 384, 512, 768, 1024)
 LATENCY_SCALE = 4
+#: the learned curve: NxN RGBA frames through ModelUpscaler on this
+#: checkpoint (4x)
+LEARNED_MODEL = "model/wp-1e-3-120"
+LEARNED_SIZES = (64, 96, 128, 192, 256, 384, 512)
+#: a served row times each mode in this many passes, in turns, each
+#: lasting at least SERVED_WINDOW_S seconds (the suite's slope window)
+SERVED_PASSES = 3
+SERVED_WINDOW_S = suite.SLOPE_MIN_DELTA_S
+#: batching wins at a size when a grouped frame takes at most this many
+#: times a frame launched alone (the JAX policy test's slack)
+WIN_SLACK = 1.05
 METHOD = "bicubic"
 
-RESULTS_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "results"
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+RESULTS_DIR = ROOT / "build" / "results"
+#: the card's committed runs of the measurement scripts
+CARD_RESULTS_DIR = ROOT / "results_torch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,16 +112,20 @@ class Geometry:
     mixed_sizes: tuple
     stream_frames: int
     latency_sizes: tuple
+    learned_sizes: tuple = ()
+    #: the most frames a latency row puts in one launch (the JAX
+    #: script's cap)
+    max_group: int = 64
 
 
 FULL = Geometry(CONFIGS, MIXED_BATCH, MIXED_BUCKETS, MIXED_SIZES,
-                STREAM_FRAMES, LATENCY_SIZES)
+                STREAM_FRAMES, LATENCY_SIZES, LEARNED_SIZES)
 #: the same rows at a small size, for the plain versions on the CPU
 SMALL = Geometry(
     {"c1_256_gray_2x": (16, 16, 2), "c2_512_rgb_4x": (16, 24, 4),
      "c4_4k_4x": (27, 48, 4), "c5_1080p_2x_stream": (18, 32, 2)},
     (7, 24, 40, 4), ((2, 3), (3, 2), (4, 2)),
-    ((24, 40), (22, 37), (26, 35), (20, 33)), 4, (8, 16, 24))
+    ((24, 40), (22, 37), (26, 35), (20, 33)), 4, (8, 16, 24), (8, 12), 4)
 
 #: the seven kernels' wrappers, whose ``launches`` count their launches
 WRAPPERS = {"packed_tail_fused": packed_tail.packed_tail_fused,
@@ -125,10 +154,13 @@ def expected(**own) -> dict:
     return {k: own.get(k, 0) for k in WRAPPERS}
 
 
-def microbatch_for(n: int, threshold: int) -> int:
-    """Frames per launch for NxN frames: ``latency_curve.py``'s rule,
-    about 4 x ``threshold`` pixels per launch, 1 to 64 frames."""
-    return min(64, max(1, int(round(threshold * 4 / (n * n)))))
+def microbatch_for(n: int, target_px: int, cap: int) -> int:
+    """Frames per launch of a latency row for NxN frames: the group
+    ``stream(microbatch="auto")`` makes below its threshold
+    (``serving.group_size`` with no threshold, ``target_px`` pixels a
+    launch), at most ``cap`` (``Geometry.max_group``)."""
+    from ..serving import group_size
+    return min(cap, group_size("auto", n * n, None, target_px))
 
 
 def device_and_card(cpu: bool) -> tuple[torch.device, str]:
@@ -467,14 +499,99 @@ def run_configs(*, geo=FULL, dev, card="", emit=None) -> dict:
             "card": card, "configs": rows}
 
 
-def latency_point(n, threshold, *, dev, rng, cache=None):
-    """One NxN RGBA frame -> 4x through kernel C, single and
-    micro-batched (:func:`microbatch_for` frames in one launch, each equal
-    to its own launch), per frame at the program-output boundary
-    (``suite.bench_program_output``). ``batching_faster`` is None where
-    the rule gives one frame per launch. Returns (row, pending)."""
+def stream_launches(n_frames: int, g: int, learned: bool) -> dict:
+    """The launches of one ``stream()`` pass over ``n_frames`` same-shape
+    RGBA frames at ``g`` a launch: C once a group (classical); A once a
+    group and B once a one-frame group (learned: a single frame goes out
+    as RGBA32 words through B, a group as uint8 HWC)."""
+    groups = [g] * (n_frames // g) + ([n_frames % g] if n_frames % g else [])
+    if not learned:
+        return expected(resize_mxu=len(groups))
+    return expected(packed_tail_fused=len(groups),
+                    interleave_planar_u32=groups.count(1))
+
+
+def served_frames(g: int, geo=FULL) -> int:
+    """Frames of a served row: two groups, at least ``stream_frames``."""
+    return max(geo.stream_frames, 2 * g)
+
+
+def _served_pass(up, frames, mb, dev) -> tuple[float, int]:
+    """One ``up.stream()`` pass over ``frames`` cycled, in whole groups of
+    ``mb``, until :data:`SERVED_WINDOW_S` has passed, each frame fetched
+    and dropped as it comes: (host ms a frame, frames)."""
+    per, fed = mb or 1, 0
+
+    def source():
+        nonlocal fed
+        for frame in itertools.cycle(frames):
+            if fed % per == 0 and time.perf_counter() >= deadline:
+                return
+            fed += 1
+            yield frame
+    _sync(dev)
+    t0 = time.perf_counter()
+    deadline = t0 + SERVED_WINDOW_S
+    for _ in up.stream(source(), microbatch=mb):
+        pass
+    _sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / fed, fed
+
+
+def served_point(up, frames, g, *, dev, learned):
+    """``up.stream()`` over same-shape ``frames`` grouped ``g`` a launch
+    (``microbatch=g``: the group "auto" makes below its threshold) and one
+    a launch (``microbatch=None``), every frame fetched. A pass of each
+    mode over ``frames`` builds the plans and counts the launches; on the
+    card :data:`SERVED_PASSES` passes of each mode, each at least
+    :data:`SERVED_WINDOW_S` long (:func:`_served_pass`), then run in
+    turns (grouped, single, single, grouped, ...). Returns (row keys: per
+    mode the median host ms a frame, every pass's and its frames, None on
+    the CPU; launches by mode; expected launches by mode)."""
+    modes = {"served_grouped": g, "served_single": None}
+    launches, want = {}, {}
+    for key, mb in modes.items():
+        _, launches[key] = counted(
+            lambda: sum(1 for _ in up.stream(frames, microbatch=mb)))
+        want[key] = stream_launches(len(frames), mb or 1, learned)
+    passes = {key: [] for key in modes}
+    fed = {key: [] for key in modes}
+    if _timed(dev):
+        order = list(modes)
+        for i in range(SERVED_PASSES):
+            for key in order if i % 2 == 0 else order[::-1]:
+                ms, n = _served_pass(up, frames, modes[key], dev)
+                passes[key].append(ms)
+                fed[key].append(n)
+    out = {}
+    for key in modes:
+        out[f"{key}_ms_per_frame"] = (statistics.median(passes[key])
+                                      if passes[key] else None)
+        out[f"{key}_passes_ms_per_frame"] = passes[key] or None
+        out[f"{key}_frames_per_pass"] = fed[key] or None
+    return out, launches, want
+
+
+def _curve_row(n, s, g, per1, perb, served, launches, want):
+    out_px = (n * s) ** 2
+    return {"single_ms": to_ms(per1), "single_gpix_s": _gpix(out_px, per1),
+            "microbatch": g, "batched_ms_per_frame": to_ms(perb),
+            "batched_gpix_s": _gpix(out_px, perb),
+            # one frame per launch both ways: nothing to compare
+            "batching_faster": None if perb is None or g == 1
+            else perb < per1,
+            **served, "launches": launches, "expected_launches": want}
+
+
+def latency_point(n, up, *, dev, rng, geo=FULL):
+    """One NxN RGBA frame -> 4x through kernel C, one frame a launch
+    against :func:`microbatch_for` frames in one launch (each equal to its
+    own launch), per frame at the program-output boundary
+    (``suite.bench_program_output``), and served through ``up`` (a
+    ``serving.Upscaler`` at 4x; :func:`served_point`). Returns (row,
+    pending)."""
     s = LATENCY_SCALE
-    cache = {} if cache is None else cache
+    cache: dict = {}
     fn = lambda x: mxu.resize_mxu(x, s, METHOD, weight_cache=cache)
     img = rng.integers(0, 256, (n, n, 4), dtype=np.uint8)
     x = torch.from_numpy(img).to(dev)
@@ -482,55 +599,208 @@ def latency_point(n, threshold, *, dev, rng, cache=None):
     got, single = counted(lambda: fn(x))
     cases = [suite.parity_case(img, s, got)]
     del got
-    b = microbatch_for(n, threshold)
-    batch = torch.from_numpy(rng.integers(0, 256, (b, n, n, 4),
+    g = microbatch_for(n, up.MICROBATCH_TARGET_PX, geo.max_group)
+    batch = torch.from_numpy(rng.integers(0, 256, (g, n, n, 4),
                                           dtype=np.uint8)).to(dev)
     gotb, batched = counted(lambda: fn(batch))
-    equal = all(torch.equal(gotb[i], fn(batch[i])) for i in range(b))
+    equal = all(torch.equal(gotb[i], fn(batch[i])) for i in range(g))
     del gotb
     per1 = perb = None
     if _timed(dev):
         # the loop grows to the outputs' byte cap (~1.2 GB), not to the
         # suite's 64 launches: small frames need long loops
         per1 = suite.bench_program_output(fn, x, max_k=100_000)
-        perb = suite.bench_program_output(fn, batch, max_k=100_000) / b
-    out_px = (n * s) ** 2
-    row = {"single_ms": to_ms(per1), "single_gpix_s": _gpix(out_px, per1),
-           "microbatch": b, "batched_ms_per_frame": to_ms(perb),
-           "batched_gpix_s": _gpix(out_px, perb),
-           "policy_batches": n * n < threshold,
-           # one frame per launch both ways: nothing to compare
-           "batching_faster": None if perb is None or b == 1
-           else perb < per1,
-           "plan_build_ms": plan_ms,
-           "launches": {"single": single, "batched": batched},
-           "expected_launches": {"single": expected(resize_mxu=1),
-                                 "batched": expected(resize_mxu=1)},
-           "batched_equal_to_single_launches": equal}
+        perb = suite.bench_program_output(fn, batch, max_k=100_000) / g
+    frames = list(rng.integers(0, 256, (served_frames(g, geo), n, n, 4),
+                               dtype=np.uint8))
+    served, s_launches, s_want = served_point(up, frames, g, dev=dev,
+                                              learned=False)
+    row = _curve_row(n, s, g, per1, perb, served,
+                     {"single": single, "batched": batched, **s_launches},
+                     {"single": expected(resize_mxu=1),
+                      "batched": expected(resize_mxu=1), **s_want})
+    row.update(served_frames=len(frames), plan_build_ms=plan_ms,
+               batched_equal_to_single_launches=equal)
     return row, [(row, cases)]
 
 
-def run_latency_curve(threshold, *, geo=FULL, dev, card="",
-                      emit=None) -> dict:
-    """:func:`latency_point` at each of ``geo.latency_sizes``, held to the
-    oracle, in the JAX script's table form; ``threshold`` is the serving
-    policy's ``MICROBATCH_THRESHOLD_PX``."""
+def _host_u8(out) -> np.ndarray:
+    """A serving result as host HWC uint8 (RGBA32 words viewed)."""
+    from ..serving import _fetch
+    return np.asarray(_fetch(out)).astype(np.int16)
+
+
+def learned_point(n, up, *, dev, rng, geo=FULL):
+    """One NxN RGBA frame -> 4x through ``up`` (a ``ModelUpscaler`` on a
+    WeightPredictor checkpoint): ``up(fetch=False)`` (kernel A, then B
+    for the RGBA32 words) against ``up.batch(fetch=False)`` of
+    :func:`microbatch_for` frames (A once), per frame at the
+    program-output boundary, and served (:func:`served_point`). The
+    single frame is held to the plain graph tail (``max_u8_delta``), each
+    grouped frame to its own single launch (``batched_max_u8_vs_single``);
+    the learned contract is ≤1 u8 for both. Returns the row."""
+    from ..models.inference import super_resolve
+    img = rng.integers(0, 256, (n, n, 4), dtype=np.uint8)
+    x = torch.from_numpy(img).to(dev)
+    one = lambda t: up(t, fetch=False)
+    many = lambda t: up.batch(t, fetch=False)
+    plan_ms = plan_build_ms(lambda: one(x), dev)
+    got, single = counted(lambda: one(x))
+    graph = super_resolve(up.model, up.params, x, tail="graph",
+                          **up._kw())
+    delta = int(np.abs(_host_u8(got) - _host_u8(graph)).max())
+    del got, graph
+    g = microbatch_for(n, up.MICROBATCH_TARGET_PX, geo.max_group)
+    batch = torch.from_numpy(rng.integers(0, 256, (g, n, n, 4),
+                                          dtype=np.uint8)).to(dev)
+    gotb, batched = counted(lambda: many(batch))
+    hb = _host_u8(gotb)
+    worst = max(int(np.abs(hb[i] - _host_u8(one(batch[i]))).max())
+                for i in range(g))
+    del gotb, hb
+    per1 = perb = None
+    if _timed(dev):
+        per1 = suite.bench_program_output(one, x, max_k=100_000)
+        perb = suite.bench_program_output(many, batch, max_k=100_000) / g
+    frames = list(rng.integers(0, 256, (served_frames(g, geo), n, n, 4),
+                               dtype=np.uint8))
+    served, s_launches, s_want = served_point(up, frames, g, dev=dev,
+                                              learned=True)
+    # on the card a single RGBA frame leaves as RGBA32 words through B
+    words = int(dev.type == "cuda")
+    row = _curve_row(n, up.scale, g, per1, perb, served,
+                     {"single": single, "batched": batched, **s_launches},
+                     {"single": expected(packed_tail_fused=1,
+                                         interleave_planar_u32=words),
+                      "batched": expected(packed_tail_fused=1), **s_want})
+    row.update(served_frames=len(frames), plan_build_ms=plan_ms,
+               max_u8_delta=delta, batched_max_u8_vs_single=worst)
+    return row
+
+
+def run_latency_curve(*, geo=FULL, dev, card="", emit=None) -> dict:
+    """The two latency curves at ``geo``'s sizes, in the JAX script's
+    table form (``rows``: kernel C, each single output held to the
+    oracle) with the learned table beside it (``learned``), each stamped
+    with the threshold ``serving`` now holds and its group target."""
+    from ..serving import ModelUpscaler, Upscaler
     rng = np.random.default_rng(0)
-    cache: dict = {}
+    up = Upscaler(scale=LATENCY_SCALE, device=str(dev))
     rows, pending = {}, []
     for n in geo.latency_sizes:
-        rows[f"{n}x{n}"], p = latency_point(n, threshold, dev=dev, rng=rng,
-                                            cache=cache)
+        rows[f"{n}x{n}"], p = latency_point(n, up, dev=dev, rng=rng, geo=geo)
         pending += p
     hold(pending)
-    for key, row in rows.items():
-        row["card"] = card
-        if emit:
-            emit({"size": key, **row})
+    mup = ModelUpscaler(str(ROOT / LEARNED_MODEL), device=str(dev))
+    learned = {f"{n}x{n}": learned_point(n, mup, dev=dev, rng=rng, geo=geo)
+               for n in geo.learned_sizes}
+    for table, rs in (("classical", rows), ("learned", learned)):
+        for key, row in rs.items():
+            row["card"] = card
+            if emit:
+                emit({"table": table, "size": key, **row})
     return {"geometry": f"NxN RGBA u8 -> {LATENCY_SCALE}x {METHOD}, kernel "
-                        "C (csrc/resize_mxu.cu), program-output boundary",
+                        "C (csrc/resize_mxu.cu), program-output boundary; "
+                        "served: Upscaler.stream() with fetches",
             "backend": dev.type, "card": card,
-            "microbatch_threshold_px": threshold, "rows": rows}
+            "microbatch_threshold_px": Upscaler.MICROBATCH_THRESHOLD_PX,
+            "target_px": Upscaler.MICROBATCH_TARGET_PX, "rows": rows,
+            "learned": {
+                "geometry": f"NxN RGBA u8 -> {mup.scale}x, ModelUpscaler("
+                            f"{LEARNED_MODEL}): kernel A (csrc/"
+                            "packed_tail.cu), B (csrc/interleave.cu) on "
+                            "single frames, program-output boundary; "
+                            "served: ModelUpscaler.stream() with fetches",
+                "model": LEARNED_MODEL,
+                "microbatch_threshold_px":
+                    ModelUpscaler.MICROBATCH_THRESHOLD_PX,
+                "target_px": ModelUpscaler.MICROBATCH_TARGET_PX,
+                "rows": learned}}
+
+
+def size_px(size: str) -> int:
+    """The pixels of a table's size key ("HxW")."""
+    h, w = (int(v) for v in size.split("x"))
+    return h * w
+
+
+def batching_wins(row) -> bool:
+    """The serving policy's test at one size of one call: more than one
+    frame a launch, and a grouped frame at most :data:`WIN_SLACK` times a
+    frame launched alone, both at the program-output boundary and served
+    (``stream()`` with its fetches)."""
+    return (row["microbatch"] > 1
+            and row["batched_ms_per_frame"]
+            <= WIN_SLACK * row["single_ms"]
+            and row["served_grouped_ms_per_frame"]
+            <= WIN_SLACK * row["served_single_ms_per_frame"])
+
+
+def threshold_from(tables: list) -> int:
+    """The ``MICROBATCH_THRESHOLD_PX`` that ``tables`` (one curve's rows
+    dict from each of several calls, the same sizes in each) give: the LR
+    pixels of the smallest size at which batching did not win in every
+    call, or one more than the largest size's if it won at every size."""
+    sizes = sorted(tables[0], key=size_px)
+    if any(sorted(t, key=size_px) != sizes for t in tables):
+        raise ValueError("the calls measured different sizes")
+    for size in sizes:
+        if not all(batching_wins(t[size]) for t in tables):
+            return size_px(size)
+    return size_px(sizes[-1]) + 1
+
+
+def card_curves() -> list:
+    """The committed card runs of ``scripts/torch_latency_curve.py``
+    (``results_torch/latency_curve_call*.json``), in call order."""
+    return [json.loads(p.read_text()) for p in
+            sorted(CARD_RESULTS_DIR.glob("latency_curve_call*.json"))]
+
+
+#: the files a card run's ``source_sha256`` covers: the port and the two
+#: measurement scripts that write ``results_torch/``
+SOURCE_GLOBS = ("bicubic_interpolation_model_tpu_torch/**/*.py",
+                "bicubic_interpolation_model_tpu_torch/csrc/*",
+                "scripts/torch_bench_configs.py",
+                "scripts/torch_latency_curve.py")
+
+
+def source_sha256() -> str:
+    """SHA-256 of the files :data:`SOURCE_GLOBS` names (each one's path
+    from the root, then its bytes, in path order), the lines that set
+    ``MICROBATCH_THRESHOLD_PX`` left out: the curves never read them, and
+    they are set from the curves afterwards. A checkout that gives a
+    committed run's ``source_sha256`` runs the code that measured it."""
+    h = hashlib.sha256()
+    for path in sorted({p for g in SOURCE_GLOBS for p in ROOT.glob(g)
+                        if p.is_file()}):
+        data = re.sub(rb"(?m)^ *MICROBATCH_THRESHOLD_PX = .*\n", b"",
+                      path.read_bytes())
+        h.update(f"{path.relative_to(ROOT).as_posix()}\0{len(data)}\0"
+                 .encode())
+        h.update(data)
+    return h.hexdigest()
+
+
+def provenance(dev, card: str, commit: str | None = None) -> dict:
+    """Where a table was measured: the backend, the card's name and power
+    limit (``card``), torch and CUDA, the source revision (``commit``,
+    else ``git rev-parse HEAD`` where the checkout has its history), the
+    code's :func:`source_sha256` and the UTC date."""
+    import datetime
+    import subprocess
+    if commit is None:
+        try:
+            out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=30)
+            commit = out.stdout.strip() if out.returncode == 0 else None
+        except OSError:
+            pass
+    return {"backend": dev.type, "card": card, "torch": torch.__version__,
+            "cuda": torch.version.cuda, "commit": commit or None,
+            "source_sha256": source_sha256(),
+            "date": datetime.datetime.now(datetime.timezone.utc).strftime(
+                "%Y-%m-%dT%H:%M:%SZ")}
 
 
 #: calls of a traced launch loop
@@ -627,8 +897,8 @@ def run_launch_trace(*, geo=FULL, dev, card="", emit=None) -> dict:
 def failures(rows: dict, on_card: bool) -> list:
     """What fails in ``rows`` (a table's rows): a delta above 1 u8 (of a
     single-frame row's every candidate too), a batch or stream frame
-    unequal to its own launch, and on the card launches other than
-    expected."""
+    unequal to its own launch (more than 1 u8 from it for a learned
+    frame), and on the card launches other than expected."""
     bad = []
     for key, row in rows.items():
         if row.get("max_u8_delta") is None or row["max_u8_delta"] > 1:
@@ -637,6 +907,9 @@ def failures(rows: dict, on_card: bool) -> list:
                   "batched_equal_to_single_launches"):
             if row.get(k) is False:
                 bad.append(f"{key}: {k} is False")
+        if row.get("batched_max_u8_vs_single", 0) > 1:
+            bad.append(f"{key}: batched_max_u8_vs_single "
+                       f"{row['batched_max_u8_vs_single']}")
         subs = (row["candidates"].values() if "candidates" in row
                 else [row])
         for sub in subs:

@@ -4,10 +4,14 @@
 Two dense sampling-matrix products in f32 from :func:`..core.plan.
 plan_downsample` (HR→LR generation: ``cubic`` or ``lanczos3``). The JAX
 package computes them outside any kernel at full f32 precision, so they are
-two ``torch.matmul`` s here, with TF32 kept off.
+two ``torch.matmul`` s here, with TF32 kept off. The JAX package builds the
+two matrices once per shape, as constants of its jitted program; here they
+are built and uploaded once per shape and device (:func:`_matrices`).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +27,19 @@ def _out_shape(h, w, factor, out_shape):
     return out_shape
 
 
+@functools.lru_cache(maxsize=16)
+def _matrices(h: int, w: int, factor: float, method: str, h_out: int,
+              w_out: int, device: torch.device):
+    """The row matrix [h_out, h] and the transposed column matrix
+    [w, w_out], f32 on ``device``, built once per key."""
+    dev = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    m_row = dev(planlib.plan_to_matrix(
+        planlib.plan_downsample(h, factor, method, n_out=h_out)))
+    m_col_t = dev(planlib.plan_to_matrix(
+        planlib.plan_downsample(w, factor, method, n_out=w_out)).T)
+    return m_row, m_col_t
+
+
 def downsample(img, factor: float, method: str = "cubic",
                out_shape: tuple[int, int] | None = None, *, device="cuda"):
     """Downsample an HW/HWC image (numpy or tensor) by ``factor`` (>= 1) with
@@ -36,12 +53,8 @@ def downsample(img, factor: float, method: str = "cubic",
         img = img[..., None]
     h, w = img.shape[:2]
     h_out, w_out = _out_shape(h, w, factor, out_shape)
-    dev = lambda arr: torch.from_numpy(np.ascontiguousarray(arr)).to(
-        img.device)
-    m_row = dev(planlib.plan_to_matrix(
-        planlib.plan_downsample(h, float(factor), method, n_out=h_out)))
-    m_col_t = dev(planlib.plan_to_matrix(
-        planlib.plan_downsample(w, float(factor), method, n_out=w_out)).T)
+    m_row, m_col_t = _matrices(int(h), int(w), float(factor), method,
+                               int(h_out), int(w_out), img.device)
     in_dtype = img.dtype
     chw = img.permute(2, 0, 1).to(torch.float32)
     with _full_f32_matmul():

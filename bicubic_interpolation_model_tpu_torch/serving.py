@@ -130,6 +130,22 @@ def _stream_grouped(frames, single, batched, group_size):
         yield from emit(*pending)
 
 
+def group_size(microbatch, px: int, threshold: int | None,
+               target_px: int) -> int:
+    """Frames per launch that ``stream(microbatch=...)`` groups for frames
+    of ``px`` LR pixels: 1 for None, the int itself (at least 1) for an
+    int, and for "auto" ``round(target_px / px)`` (at least 1) below
+    ``threshold``, else 1. ``threshold=None`` gives the size "auto" would
+    group at whatever the threshold (the latency curve measures that)."""
+    if microbatch is None:
+        return 1
+    if isinstance(microbatch, int):
+        return max(1, microbatch)
+    if threshold is not None and px >= threshold:
+        return 1
+    return max(1, int(round(target_px / px)))
+
+
 @dataclasses.dataclass
 class Upscaler:
     """Classical-kernel upscaler. ``device`` defaults to the card; without
@@ -204,13 +220,19 @@ class Upscaler:
                                **self._kw())
         return _fetch(out) if fetch else out
 
-    #: the JAX package's auto-microbatch policy value, kept so that both
-    #: packages group the same frames (grouping changes launches, never
-    #: bytes): "auto" groups only frames at or below 128x128 LR pixels. It
-    #: was derived from a TPU latency curve and is not measured on a GPU
-    #: here; chip_smoke.py times 128x128 frames grouped and single, and
-    #: PERF.md says what it finds.
-    MICROBATCH_THRESHOLD_PX = 128 * 128 + 1
+    #: "auto" groups frames below this many LR pixels, set on an NVIDIA
+    #: H100 80GB HBM3 at 700 W from the classical tables of the
+    #: committed curves results_torch/latency_curve_call{1,2,3}.json
+    #: (kernel C, NxN RGBA -> 4x; scripts/torch_latency_curve.py) by the
+    #: rule that tests/test_torch_serving_policy.py holds it to: the pixel
+    #: count of the smallest measured size at which grouping did not win
+    #: in every call (a grouped frame at most 1.05 x a frame launched
+    #: alone, on the device and as a served stream frame with its fetch),
+    #: or one more than the largest size if it won at every size.
+    #: Grouping changes launches, never bytes.
+    MICROBATCH_THRESHOLD_PX = 1024 * 1024
+    #: LR pixels per launch that "auto" sizes its groups to
+    MICROBATCH_TARGET_PX = 2 ** 20
 
     def stream(self, frames: Iterable[np.ndarray],
                microbatch: int | str | None = "auto"
@@ -219,22 +241,17 @@ class Upscaler:
         frame i-1. ``microbatch``: consecutive SAME-SHAPE frames under
         ``MICROBATCH_THRESHOLD_PX`` are grouped into one kernel launch;
         "auto" sizes groups to ~1 MPix, an int forces that group size,
-        None disables grouping. On a CUDA device grouped values are
-        bit-identical to per-frame dispatch (the batch is a grid
-        dimension); the plain versions hold the ±1 u8 LSB contract."""
-        def group_size(img):
-            if microbatch is None or self.method == "adaptive":
-                return 1
-            if isinstance(microbatch, int):
-                return max(1, microbatch)
-            px = img.shape[0] * img.shape[1]
-            if px >= self.MICROBATCH_THRESHOLD_PX:
-                return 1
-            return max(1, int(round(2 ** 20 / px)))
-
+        None disables grouping (:func:`group_size`); adaptive never
+        groups. On a CUDA device grouped values are bit-identical to
+        per-frame dispatch (the batch is a grid dimension); the plain
+        versions hold the ±1 u8 LSB contract."""
+        mb = None if self.method == "adaptive" else microbatch
         yield from _stream_grouped(
             frames, lambda img: self(img, fetch=False),
-            lambda g: self.batch(g, fetch=False), group_size)
+            lambda g: self.batch(g, fetch=False),
+            lambda img: group_size(mb, img.shape[0] * img.shape[1],
+                                   self.MICROBATCH_THRESHOLD_PX,
+                                   self.MICROBATCH_TARGET_PX))
 
 
 @dataclasses.dataclass
@@ -314,27 +331,27 @@ class ModelUpscaler:
         out = super_resolve_batch(self.model, self.params, lrs, **self._kw())
         return _fetch(out) if fetch else out
 
-    #: below this LR pixel count, stream() groups frames
-    MICROBATCH_THRESHOLD_PX = 256 * 256
+    #: "auto" groups frames below this many LR pixels, set on an NVIDIA
+    #: H100 80GB HBM3 at 700 W from the learned tables of the committed
+    #: curves results_torch/latency_curve_call{1,2,3}.json
+    #: (model/wp-1e-3-120, NxN RGBA -> 4x: kernel A, and B on single
+    #: frames) by the rule of :attr:`Upscaler.MICROBATCH_THRESHOLD_PX`.
+    MICROBATCH_THRESHOLD_PX = 512 * 512
+    #: LR pixels per launch that "auto" sizes its groups to
+    MICROBATCH_TARGET_PX = 2 ** 18
 
     def stream(self, frames: Iterable[np.ndarray],
                microbatch="auto") -> Iterator[np.ndarray]:
         """Per-frame host results with dispatch/fetch overlap.
-        ``microbatch`` groups consecutive same-shape frames below 256² into
-        one launch (~0.25 MPix per dispatch); an int forces that group
-        size, None disables grouping. For a direct model a grouped frame
-        may differ from a single one by ±1 u8 (cuDNN may pick another
-        algorithm at another batch size)."""
-        def group_size(img):
-            if microbatch is None:
-                return 1
-            if isinstance(microbatch, int):
-                return max(1, microbatch)
-            px = img.shape[0] * img.shape[1]
-            if px >= self.MICROBATCH_THRESHOLD_PX:
-                return 1
-            return max(1, int(round(2 ** 18 / px)))
-
+        ``microbatch`` groups consecutive same-shape frames under
+        ``MICROBATCH_THRESHOLD_PX`` into one launch (~0.25 MPix per
+        dispatch); an int forces that group size, None disables grouping
+        (:func:`group_size`). For a direct model a grouped frame may differ
+        from a single one by ±1 u8 (cuDNN may pick another algorithm at
+        another batch size)."""
         yield from _stream_grouped(
             frames, lambda img: self(img, fetch=False),
-            lambda g: self.batch(g, fetch=False), group_size)
+            lambda g: self.batch(g, fetch=False),
+            lambda img: group_size(microbatch, img.shape[0] * img.shape[1],
+                                   self.MICROBATCH_THRESHOLD_PX,
+                                   self.MICROBATCH_TARGET_PX))

@@ -29,7 +29,13 @@ steps on a mesh of the card repeated against the unsharded steps, and the
 trained checkpoint saved, loaded and served through kernels A and B.
 Then the labs: every probe instance of kernels D, E and G
 (``bench/labs.py``: one stage cut or replaced) launched once, held to its
-plain version and timed beside its full instance.
+plain version and timed beside its full instance. Then the measurement
+scripts' paths (the BASELINE configs; both latency curves, classical
+through kernel C and learned through kernels A and B, with the serving
+policy's decision per size beside the committed ``results_torch/``
+calls; per-method throughput) and the serving policy itself:
+``stream(microbatch="auto")`` at the largest size each threshold groups,
+launching C, and A and B, once a group.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -1482,6 +1488,64 @@ def crop_vs_plain(mxu, phase, dev):
     return len(cases), worst, share
 
 
+def latency_curve_phase(dev, name_power, zero_counts, read_counts):
+    """``latency_curve``: both curves of ``scripts/torch_latency_curve.py``
+    (NxN -> 4x through C, and through ``ModelUpscaler``: A, B), one frame
+    a launch and grouped, device and served, with the counts at 0 before
+    and read after; per size the policy's decision, this call's reading
+    and the committed ``results_torch/`` calls'."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    from bicubic_interpolation_model_tpu_torch.serving import (
+        ModelUpscaler, Upscaler)
+    t0 = time.perf_counter()
+    zero_counts()
+    table = cf.run_latency_curve(dev=dev, card=name_power)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    committed = cf.card_curves()
+    curves = {"classical": (table["rows"], Upscaler.MICROBATCH_THRESHOLD_PX,
+                            [c["rows"] for c in committed]),
+              "learned": (table["learned"]["rows"],
+                          ModelUpscaler.MICROBATCH_THRESHOLD_PX,
+                          [c["learned"]["rows"] for c in committed])}
+    bad, lines = [], {}
+    for name, (rows, threshold, kept) in curves.items():
+        bad += [f"{name} {b}" for b in cf.failures(rows, True)]
+        lines[name] = {}
+        for key, row in rows.items():
+            line = lines[name][key] = brief(row, (
+                "single_ms", "single_gpix_s", "microbatch",
+                "batched_ms_per_frame", "batched_gpix_s", "batching_faster",
+                "served_grouped_ms_per_frame", "served_single_ms_per_frame",
+                "served_grouped_passes_ms_per_frame",
+                "served_single_passes_ms_per_frame", "max_u8_delta", "batched_max_u8_vs_single",
+                "plan_build_ms"))
+            if name == "classical":
+                line["bound_ms"] = config_bound(key, row)[0]
+            # the policy's decision, this call's reading and the committed
+            # calls' (a timing disagreement is printed, not failed)
+            line["policy_groups"] = cf.size_px(key) < threshold
+            line["batching_wins"] = cf.batching_wins(row)
+            line["committed_wins"] = all(
+                cf.batching_wins(k[key]) for k in kept) if all(
+                key in k for k in kept) and kept else None
+            line["agrees_with_committed"] = (line["batching_wins"]
+                                             == line["committed_wins"])
+    emit({"phase": "latency_curve", "card": name_power,
+          "microbatch_threshold_px": {
+              n: c[1] for n, c in curves.items()},
+          "committed_calls": len(committed),
+          "threshold_this_call": {
+              n: cf.threshold_from([c[0]]) for n, c in curves.items()},
+          "rows": lines["classical"], "learned_rows": lines["learned"],
+          "launches": counts, "seconds": time.perf_counter() - t0})
+    path = ("resize_mxu", "packed_tail_fused", "interleave_planar_u32")
+    if bad or any(v for k, v in counts.items() if k not in path) \
+            or not all(counts[k] for k in path):
+        raise AssertionError(f"latency_curve: {bad}, launches {counts}")
+
+
+
 def measurement_paths(dev, name_power, zero_counts, read_counts):
     """The measurement scripts' paths (``bench/configs``,
     ``bench/methods``), each driven with the seven kernels' counts at 0
@@ -1489,8 +1553,11 @@ def measurement_paths(dev, name_power, zero_counts, read_counts):
     3840x2160 RGBA -> 4x through kernels C and D included, each output held
     to the float64 oracle: every 67th row above 4096 rows, every row
     otherwise; launches per row as expected, C and D launched, no other
-    kernel), ``latency_curve`` (NxN -> 4x through C, single and
-    micro-batched) and ``method_throughput`` (its ``rational`` and
+    kernel), ``latency_curve`` (both curves of
+    ``scripts/torch_latency_curve.py``: NxN -> 4x through C and through
+    ``ModelUpscaler`` (A, B), one frame a launch and grouped, device and
+    served; per size the policy's decision and whether this call agrees
+    with the committed ``results_torch/`` calls) and ``method_throughput`` (its ``rational`` and
     ``downsample`` sections, each resize output held to the oracle on the
     frame it times, launches exactly as expected). Then each kernel configuration on a crop
     against its plain version on the card, and one ``fill_`` of the 4K
@@ -1498,7 +1565,6 @@ def measurement_paths(dev, name_power, zero_counts, read_counts):
     from bicubic_interpolation_model_tpu_torch.bench import configs as cf
     from bicubic_interpolation_model_tpu_torch.bench import methods
     from bicubic_interpolation_model_tpu_torch.ops import mxu, phase
-    from bicubic_interpolation_model_tpu_torch.serving import Upscaler
     others = lambda c: {k: v for k, v in c.items()
                         if k not in ("resize_mxu", "resize_phase") and v}
     keys = ("impl", "c", "ms_per_frame", "seconds", "gpix_per_s",
@@ -1533,28 +1599,7 @@ def measurement_paths(dev, name_power, zero_counts, read_counts):
                                      and counts["resize_phase"]):
         raise AssertionError(f"configs: {bad}, launches {counts}")
 
-    t0 = time.perf_counter()
-    zero_counts()
-    table = cf.run_latency_curve(Upscaler.MICROBATCH_THRESHOLD_PX, dev=dev,
-                                 card=name_power)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    rows = table["rows"]
-    bad = cf.failures(rows, True)
-    lines = {}
-    for key, row in rows.items():
-        lines[key] = brief(row, ("single_ms", "single_gpix_s", "microbatch",
-                                 "batched_ms_per_frame", "batched_gpix_s",
-                                 "policy_batches", "batching_faster",
-                                 "max_u8_delta", "plan_build_ms"))
-        lines[key]["bound_ms"] = config_bound(key, row)[0]
-    emit({"phase": "latency_curve", "card": name_power,
-          "microbatch_threshold_px": Upscaler.MICROBATCH_THRESHOLD_PX,
-          "rows": lines, "launches": counts,
-          "seconds": time.perf_counter() - t0})
-    if bad or others(counts) or counts["resize_phase"] \
-            or not counts["resize_mxu"]:
-        raise AssertionError(f"latency_curve: {bad}, launches {counts}")
+    latency_curve_phase(dev, name_power, zero_counts, read_counts)
 
     t0 = time.perf_counter()
     zero_counts()
@@ -1581,6 +1626,56 @@ def measurement_paths(dev, name_power, zero_counts, read_counts):
           "share": share})
     if mx > 1 or share >= 1e-2:
         raise AssertionError(f"crops vs plain: {mx} LSB, share {share}")
+    torch.cuda.empty_cache()
+
+
+def serving_policy_path(name_power, zero_counts, read_counts):
+    """``stream(microbatch="auto")`` at the largest size of each curve
+    that its threshold groups: 16 NxN RGBA frames through ``Upscaler``
+    (4x; kernel C once a group, each frame byte-equal to its single
+    launch) and through ``ModelUpscaler`` on the curve's checkpoint
+    (kernel A once a group, B once a one-frame group; each frame ≤1 u8
+    from its single launch), the seven kernels' counts at 0 just before
+    each stream and read just after it; any other launch fails."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    from bicubic_interpolation_model_tpu_torch.serving import (
+        ModelUpscaler, Upscaler, group_size)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(16)
+    n_frames = 16
+    paths = {"classical": (Upscaler(scale=cf.LATENCY_SCALE),
+                           cf.LATENCY_SIZES, False),
+             "learned": (ModelUpscaler(str(ROOT / cf.LEARNED_MODEL)),
+                         cf.LEARNED_SIZES, True)}
+    lines, failed = {}, []
+    for name, (up, sizes, learned) in paths.items():
+        groups = {n: group_size("auto", n * n, up.MICROBATCH_THRESHOLD_PX,
+                                up.MICROBATCH_TARGET_PX) for n in sizes}
+        n = max(k for k, g in groups.items() if g > 1)
+        frames = list(rng.integers(0, 256, (n_frames, n, n, 4),
+                                   dtype=np.uint8))
+        up(frames[0])                            # plans, cuDNN's choice
+        torch.cuda.synchronize()
+        zero_counts()
+        got = list(up.stream(frames))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = cf.stream_launches(n_frames, groups[n], learned)
+        worst = max(int(np.abs(o.astype(np.int16) - up(f)).max())
+                    for f, o in zip(frames, got))
+        lines[name] = {"size": f"{n}x{n}", "group": groups[n],
+                       "threshold_px": up.MICROBATCH_THRESHOLD_PX,
+                       "frames": len(got), "launches": counts,
+                       "expected_launches": want,
+                       "max_u8_vs_single": worst}
+        if counts != want or len(got) != n_frames \
+                or worst > (1 if learned else 0):
+            failed.append(name)
+        del got, frames
+    emit({"phase": "serving_policy", "card": name_power, **lines,
+          "seconds": time.perf_counter() - t0})
+    if failed:
+        raise AssertionError(f"serving_policy: {failed}: {lines}")
     torch.cuda.empty_cache()
 
 
@@ -2210,18 +2305,6 @@ def main() -> int:
     up_dev = time_ms(lambda: up4(frame_dev, fetch=False), iters=10)
     up_host = time_ms(lambda: up4(hd[0]), runs=10)
     ph_dev = time_ms(lambda: up_ph(frame_dev, fetch=False), iters=10)
-    # 128x128 frames through stream(), grouped by the microbatch policy and
-    # one by one (host clock around the whole stream, fetches included)
-    small = list(u8_frames(np.random.default_rng(22), 256, 128, 128, 4))
-    stream_ms = {}
-    for mode in ("auto", None, "auto", None):
-        list(up4.stream(iter(small[:64]), microbatch=mode))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_out = len(list(up4.stream(iter(small), microbatch=mode)))
-        torch.cuda.synchronize()
-        stream_ms.setdefault(str(mode), []).append(
-            (time.perf_counter() - t0) * 1e3 / n_out)
     emit({"phase": "times_classical", "card": name_power,
           "frame": [*HD, 4], "scale": 4, "method": "bicubic",
           "resize_mxu_ms": c_ms, "resize_phase_ms": d_ms,
@@ -2239,9 +2322,7 @@ def main() -> int:
           "upscaler_call_fetch_ms": up_host,
           "upscaler_forced_phase_call_device_ms": ph_dev,
           "output_gpix_per_s_device": ho * wo / up_dev / 1e6,
-          "output_gpix_per_s_with_fetch": ho * wo / up_host / 1e6,
-          "stream_128x128_ms_per_frame_grouped": stream_ms["auto"],
-          "stream_128x128_ms_per_frame_single": stream_ms["None"]})
+          "output_gpix_per_s_with_fetch": ho * wo / up_host / 1e6})
 
     emit({"phase": "profile_classical", "card": name_power,
           **profile_served_frames(up4, hd[0], 5, {
@@ -2628,6 +2709,10 @@ def main() -> int:
     # 6j. the measurement scripts' paths: kernels C and D at the BASELINE
     # geometries, the latency curve, per-method throughput
     measurement_paths(dev, name_power, zero_counts, read_counts)
+
+    # 6k. the serving policy: stream(microbatch="auto") groups as the
+    # committed curves say, through kernels C, A and B
+    serving_policy_path(name_power, zero_counts, read_counts)
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [

@@ -25,9 +25,13 @@ import torch
 from bicubic_interpolation_model_tpu.core import oracle as jo
 from bicubic_interpolation_model_tpu.ops import pallas_mxu as jmx
 from bicubic_interpolation_model_tpu.ops import pallas_phase as jph
+from bicubic_interpolation_model_tpu.serving import ModelUpscaler as \
+    JModelUpscaler
 from bicubic_interpolation_model_tpu.serving import Upscaler as JUpscaler
+from bicubic_interpolation_model_tpu_torch import serving
 from bicubic_interpolation_model_tpu_torch.bench import configs, methods, suite
-from bicubic_interpolation_model_tpu_torch.serving import Upscaler
+from bicubic_interpolation_model_tpu_torch.serving import (ModelUpscaler,
+                                                            Upscaler)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -191,17 +195,68 @@ def test_microbatch8_row_is_held_and_equal_to_singles():
 # ---- (d) the latency curve's microbatch size ----------------------------
 
 
+def _groups_of(cls, n, frames):
+    """The group lengths ``cls.stream(microbatch="auto")`` dispatches for
+    ``frames`` NxN RGBA frames with every size below its threshold: a
+    subclass (of the JAX package's or the port's upscaler) whose
+    threshold is raised past N² and whose single and batched calls only
+    record their frame counts (the JAX ``Upscaler`` serves a single frame
+    through ``_fn``)."""
+    seen = []
+
+    def record(k):
+        seen.append(k)
+        return torch.zeros((k, 1, 1, 4), dtype=torch.uint8)
+    spy = type("Spy", (cls,), {
+        "MICROBATCH_THRESHOLD_PX": n * n + 1, "method": "bicubic",
+        "bucket": None, "_mxu_ok": lambda self, img: False,
+        "_fn": lambda self: lambda x: record(1)[0],
+        "__call__": lambda self, img, fetch=True: record(1)[0],
+        "batch": lambda self, g, fetch=True: record(len(g))})
+    for _ in spy.stream(spy.__new__(spy),
+                        [np.zeros((n, n, 4), np.uint8)] * frames):
+        pass
+    return seen
+
+
 def test_microbatch_thresholds_agree():
-    assert (Upscaler.MICROBATCH_THRESHOLD_PX
-            == JUpscaler.MICROBATCH_THRESHOLD_PX)
+    """The curve's group size is the stream's own: for each size, two
+    groups of :func:`configs.microbatch_for` frames are what
+    ``Upscaler.stream(microbatch="auto")`` makes of that many frames
+    below its threshold."""
+    for n in configs.LATENCY_SIZES:
+        g = configs.microbatch_for(n, Upscaler.MICROBATCH_TARGET_PX,
+                                   configs.FULL.max_group)
+        assert _groups_of(Upscaler, n, 2 * g) == [g, g]
 
 
 @pytest.mark.parametrize("n", configs.LATENCY_SIZES)
 def test_microbatch_for_is_the_jax_formula(n):
-    jax_b = min(max(1, int(round(
-        JUpscaler.MICROBATCH_THRESHOLD_PX * 4 / (n * n)))), 64)
-    assert configs.microbatch_for(n, Upscaler.MICROBATCH_THRESHOLD_PX) \
-        == jax_b
+    """The port's ``group_size`` sizes classical groups as the JAX
+    ``Upscaler.stream`` does (``round(2**20 / px)``): both streams, below
+    their thresholds, split the same frames into the same groups."""
+    g = serving.group_size("auto", n * n, None, Upscaler.MICROBATCH_TARGET_PX)
+    frames = 2 * g + 1
+    want = _groups_of(JUpscaler, n, frames)
+    assert _groups_of(Upscaler, n, frames) == want
+    assert want == ([g, g, 1] if g > 1 else [1] * frames)
+    assert configs.microbatch_for(n, Upscaler.MICROBATCH_TARGET_PX,
+                                   configs.FULL.max_group) == min(
+        g, configs.FULL.max_group)
+
+
+@pytest.mark.parametrize("n", configs.LEARNED_SIZES)
+def test_model_microbatch_is_the_jax_formula(n):
+    """The port's ``group_size`` sizes learned groups as the JAX
+    ``ModelUpscaler.stream`` does (``round(2**18 / px)``)."""
+    target = ModelUpscaler.MICROBATCH_TARGET_PX
+    g = serving.group_size("auto", n * n, None, target)
+    frames = 2 * g + 1
+    want = _groups_of(JModelUpscaler, n, frames)
+    assert _groups_of(ModelUpscaler, n, frames) == want
+    assert want == ([g, g, 1] if g > 1 else [1] * frames)
+    assert configs.microbatch_for(n, target, configs.FULL.max_group) == min(
+        g, configs.FULL.max_group)
 
 
 # ---- (e) the scripts' constants -----------------------------------------

@@ -72,3 +72,27 @@ def test_needs_a_card_unless_cpu_is_asked():
         pytest.skip("a card is visible: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         downsample(_image(2, 8, 8), 2)
+
+
+@pytest.mark.parametrize("method", ["cubic", "lanczos3"])
+def test_downsample_builds_its_matrices_once_per_shape(method, monkeypatch):
+    """Two calls at one shape build the two sampling plans once (the JAX
+    package's matrices are constants of its jitted program, built once per
+    shape), and both calls give the JAX ``downsample``'s bytes."""
+    from bicubic_interpolation_model_tpu_torch.core import plan as planlib
+    from bicubic_interpolation_model_tpu_torch.ops import downsample as tdown
+    tdown._matrices.cache_clear()
+    built = []
+    real = planlib.plan_downsample
+    monkeypatch.setattr(planlib, "plan_downsample",
+                        lambda *a, **k: built.append(a) or real(*a, **k))
+    img = _image(3, 52, 44, 4)
+    want = np.asarray(jdown.downsample(img, 4, method))
+    for i in range(2):
+        got = downsample(img ^ np.uint8(i), 4, method, device="cpu")
+        np.testing.assert_array_equal(
+            got.numpy(), want if i == 0 else np.asarray(
+                jdown.downsample(img ^ np.uint8(i), 4, method)))
+    assert len(built) == 2
+    downsample(_image(4, 52, 40, 4), 4, method, device="cpu")
+    assert len(built) == 4                     # another width: two more

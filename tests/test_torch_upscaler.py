@@ -16,6 +16,7 @@ import torch
 from bicubic_interpolation_model_tpu import serving as jserving
 from bicubic_interpolation_model_tpu.core.oracle import (
     adaptive_bicubic_oracle, resize_oracle)
+from bicubic_interpolation_model_tpu_torch.bench import configs
 from bicubic_interpolation_model_tpu_torch.serving import Upscaler
 
 from test_torch_adaptive import all_class_frame
@@ -103,8 +104,13 @@ def test_stream_microbatch(microbatch):
 
 
 def test_microbatch_policy_is_the_reference_value():
-    assert (Upscaler.MICROBATCH_THRESHOLD_PX
-            == jserving.Upscaler.MICROBATCH_THRESHOLD_PX)
+    """The threshold is the one the JAX package's rule derives from the
+    card's committed curves (results_torch/latency_curve_call*.json), as
+    the JAX package's is derived from its chip's."""
+    curves = configs.card_curves()
+    assert len(curves) == 3
+    assert Upscaler.MICROBATCH_THRESHOLD_PX == configs.threshold_from(
+        [c["rows"] for c in curves])
 
 
 def test_bucketed_bit_exact():
