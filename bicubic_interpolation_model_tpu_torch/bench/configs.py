@@ -89,8 +89,9 @@ LATENCY_SCALE = 4
 LEARNED_MODEL = "model/wp-1e-3-120"
 LEARNED_SIZES = (64, 96, 128, 192, 256, 384, 512)
 #: a served row times each mode in this many passes, in turns, each
-#: lasting at least SERVED_WINDOW_S seconds (the suite's slope window)
-SERVED_PASSES = 3
+#: lasting at least SERVED_WINDOW_S seconds (the suite's slope window),
+#: after one untimed pass of each mode as long
+SERVED_PASSES = 5
 SERVED_WINDOW_S = suite.SLOPE_MIN_DELTA_S
 #: batching wins at a size when a grouped frame takes at most this many
 #: times a frame launched alone (the JAX policy test's slack)
@@ -543,11 +544,15 @@ def served_point(up, frames, g, *, dev, learned):
     (``microbatch=g``: the group "auto" makes below its threshold) and one
     a launch (``microbatch=None``), every frame fetched. A pass of each
     mode over ``frames`` builds the plans and counts the launches; on the
-    card :data:`SERVED_PASSES` passes of each mode, each at least
-    :data:`SERVED_WINDOW_S` long (:func:`_served_pass`), then run in
-    turns (grouped, single, single, grouped, ...). Returns (row keys: per
-    mode the median host ms a frame, every pass's and its frames, None on
-    the CPU; launches by mode; expected launches by mode)."""
+    card one untimed pass of each mode, as long as a timed one, brings
+    the plans and the host's pinned blocks to their steady state, then
+    :data:`SERVED_PASSES` passes of each mode, each at least
+    :data:`SERVED_WINDOW_S` long (:func:`_served_pass`), run in turns
+    (grouped, single, single, grouped, ...), so that each grouped pass
+    has a single one beside it. Returns (row keys: per mode the median
+    host ms a frame, every pass's and its frames, and the spread of its
+    passes (slowest / fastest), None on the CPU; launches by mode;
+    expected launches by mode)."""
     modes = {"served_grouped": g, "served_single": None}
     launches, want = {}, {}
     for key, mb in modes.items():
@@ -558,6 +563,8 @@ def served_point(up, frames, g, *, dev, learned):
     fed = {key: [] for key in modes}
     if _timed(dev):
         order = list(modes)
+        for key in order:
+            _served_pass(up, frames, modes[key], dev)
         for i in range(SERVED_PASSES):
             for key in order if i % 2 == 0 else order[::-1]:
                 ms, n = _served_pass(up, frames, modes[key], dev)
@@ -569,6 +576,8 @@ def served_point(up, frames, g, *, dev, learned):
                                       if passes[key] else None)
         out[f"{key}_passes_ms_per_frame"] = passes[key] or None
         out[f"{key}_frames_per_pass"] = fed[key] or None
+        out[f"{key}_spread"] = (max(passes[key]) / min(passes[key])
+                                if passes[key] else None)
     return out, launches, want
 
 
@@ -697,6 +706,9 @@ def run_latency_curve(*, geo=FULL, dev, card="", emit=None) -> dict:
     for table, rs in (("classical", rows), ("learned", learned)):
         for key, row in rs.items():
             row["card"] = card
+            # this call's reading by the policy's rule, beside the spreads
+            row["batching_wins"] = (batching_wins(row) if _timed(dev)
+                                    else None)
             if emit:
                 emit({"table": table, "size": key, **row})
     return {"geometry": f"NxN RGBA u8 -> {LATENCY_SCALE}x {METHOD}, kernel "
@@ -757,12 +769,18 @@ def card_curves() -> list:
             sorted(CARD_RESULTS_DIR.glob("latency_curve_call*.json"))]
 
 
-#: the files a card run's ``source_sha256`` covers: the port and the two
-#: measurement scripts that write ``results_torch/``
+#: the files a card run's ``source_sha256`` covers: the port, the five
+#: producer scripts whose tables ``results_torch/`` holds and the refresh
+#: that runs them (``scripts/torch_refresh_results.py``; its renderer
+#: writes no measurement and stays out)
 SOURCE_GLOBS = ("bicubic_interpolation_model_tpu_torch/**/*.py",
                 "bicubic_interpolation_model_tpu_torch/csrc/*",
                 "scripts/torch_bench_configs.py",
-                "scripts/torch_latency_curve.py")
+                "scripts/torch_latency_curve.py",
+                "scripts/torch_method_throughput.py",
+                "scripts/torch_packed_tail_lab.py",
+                "scripts/torch_adaptive_probe_lab.py",
+                "scripts/torch_refresh_results.py")
 
 
 def source_sha256() -> str:
@@ -780,6 +798,19 @@ def source_sha256() -> str:
                  .encode())
         h.update(data)
     return h.hexdigest()
+
+
+def freshness(sha: str | None = None) -> dict:
+    """Each committed ``results_torch/*.json`` by file name: (its
+    ``source_sha256``, "fresh" where it equals ``sha`` (by default this
+    checkout's :func:`source_sha256`), else "stale")."""
+    sha = sha or source_sha256()
+    out = {}
+    for p in sorted(CARD_RESULTS_DIR.glob("*.json")):
+        got = json.loads(p.read_text()).get("_provenance", {}).get(
+            "source_sha256")
+        out[p.name] = (got, "fresh" if got == sha else "stale")
+    return out
 
 
 def provenance(dev, card: str, commit: str | None = None) -> dict:

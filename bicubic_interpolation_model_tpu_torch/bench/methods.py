@@ -15,7 +15,8 @@ script's:
   4x; planar words, with the hwc and hwc32 program-output ms) against the
   plain graph, and at 1080p -> 4x;
 - ``learned``: every committed WeightPredictor checkpoint
-  (``model/wp-*``) at 348x510 -> 4x through kernel A. The JAX script's
+  (``model/wp-*``) at 348x510 -> 4x through kernel A, held to the plain
+  graph tail (:func:`learned_row`). The JAX script's
   ``ref_1e-3-30`` row reads the reference's own checkpoint, which the
   repository does not hold; each row names the checkpoint it ran;
 - ``neural``: the direct models (``model/espcn_*``, ``esrgan_*``,
@@ -253,35 +254,48 @@ def rational(out, *, geo, dev, emit):
             "candidates": rows}
 
 
-def learned(out, lr_u8, *, dev, emit):
+def learned_row(d, lr_u8, *, dev) -> dict:
+    """The row of the WeightPredictor checkpoint in directory ``d`` on
+    ``lr_u8``: its launches over one call, that call's output held to the
+    plain graph tail (``max_u8_delta``; the learned contract is ≤1 u8)
+    and, on the card, its chained and program-output times."""
     from ..evaluation.model_analysis import _load_model_any
     from ..models.inference import _tail_operands, _tree, super_resolve
     out_px = lr_u8.shape[0] * lr_u8.shape[1] * SCALE * SCALE
+    model, params = _load_model_any(d, device=dev)
+    # the tail's operands, built once per checkpoint as ModelUpscaler
+    # builds them
+    with torch.no_grad():
+        ops = _tail_operands(_tree(params), SCALE, "train")
+    fn = lambda x: super_resolve(model, params, x, SCALE, "train",
+                                 tail_operands=ops)
+    got, launches = configs.counted(lambda: fn(lr_u8))
+    graph = super_resolve(model, params, lr_u8, SCALE, "train",
+                          tail="graph")
+    delta = int((got.to(torch.int16) - graph.to(torch.int16)).abs().max())
+    del got, graph
+    per = _timed_or_none(dev, suite.chained_bench, fn, lr_u8)
+    po = _timed_or_none(dev, suite.bench_program_output, fn, lr_u8)
+    ref = REFERENCE_MS["model_1e-3-30"]
+    return {
+        "ms_per_frame": configs.to_ms(per),
+        "program_output_ms": configs.to_ms(po),
+        "gpix_per_s": None if per is None else out_px / per / 1e9,
+        "reference_ms": ref,
+        "speedup": None if per is None else ref / (per * 1e3),
+        "impl": "packed forward (cuDNN convs), fused tail kernel A "
+                "(csrc/packed_tail.cu)",
+        "note": "phase-packed predict+apply; the reference row is its "
+                "own 1e-3-30 checkpoint, this one the committed "
+                f"model/{d.name}",
+        "checkpoint": f"model/{d.name}", "launches": launches,
+        "expected_launches": configs.expected(packed_tail_fused=1),
+        "max_u8_delta": delta}
+
+
+def learned(out, lr_u8, *, dev, emit):
     for d in sorted((ROOT / "model").glob("wp-*")):
-        model, params = _load_model_any(d, device=dev)
-        # the tail's operands, built once per checkpoint as ModelUpscaler
-        # builds them
-        with torch.no_grad():
-            ops = _tail_operands(_tree(params), SCALE, "train")
-        fn = lambda x: super_resolve(model, params, x, SCALE, "train",
-                                     tail_operands=ops)
-        _, launches = configs.counted(lambda: fn(lr_u8))
-        per = _timed_or_none(dev, suite.chained_bench, fn, lr_u8)
-        po = _timed_or_none(dev, suite.bench_program_output, fn, lr_u8)
-        ref = REFERENCE_MS["model_1e-3-30"]
-        out[d.name] = {
-            "ms_per_frame": configs.to_ms(per),
-            "program_output_ms": configs.to_ms(po),
-            "gpix_per_s": None if per is None else out_px / per / 1e9,
-            "reference_ms": ref,
-            "speedup": None if per is None else ref / (per * 1e3),
-            "impl": "packed forward (cuDNN convs), fused tail kernel A "
-                    "(csrc/packed_tail.cu)",
-            "note": "phase-packed predict+apply; the reference row is its "
-                    "own 1e-3-30 checkpoint, this one the committed "
-                    f"model/{d.name}",
-            "checkpoint": f"model/{d.name}", "launches": launches,
-            "expected_launches": configs.expected(packed_tail_fused=1)}
+        out[d.name] = learned_row(d, lr_u8, dev=dev)
         emit(d.name, out[d.name])
 
 
@@ -367,6 +381,13 @@ def train(out, rng, *, geo, dev, emit):
     bench_train(b, p, p, "train_step_patch16x48")
 
 
+def lr_frame(rng, geo, dev) -> torch.Tensor:
+    """The seeded RGBA frame at ``geo.lr`` of the adaptive, learned and
+    neural rows (the first draw of :func:`run`'s ``default_rng(0)``)."""
+    return torch.from_numpy(rng.integers(0, 256, (*geo.lr, 4),
+                                         dtype=np.uint8)).to(dev)
+
+
 def run(sections, *, geo=FULL, dev, card="", emit=None) -> dict:
     """The ``sections`` (names of :data:`SECTIONS`): their rows by the JAX
     script's keys, each stamped with the card. ``emit(name, row)`` gets
@@ -379,8 +400,7 @@ def run(sections, *, geo=FULL, dev, card="", emit=None) -> dict:
                                emit and emit(name, row))
     kw = dict(dev=dev, emit=stamp)
     rng = np.random.default_rng(0)
-    lr_u8 = torch.from_numpy(rng.integers(0, 256, (*geo.lr, 4),
-                                          dtype=np.uint8)).to(dev)
+    lr_u8 = lr_frame(rng, geo, dev)
     for section in SECTIONS:
         if section not in sections:
             continue

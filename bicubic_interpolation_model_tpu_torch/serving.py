@@ -230,7 +230,7 @@ class Upscaler:
     #: alone, on the device and as a served stream frame with its fetch),
     #: or one more than the largest size if it won at every size.
     #: Grouping changes launches, never bytes.
-    MICROBATCH_THRESHOLD_PX = 1024 * 1024
+    MICROBATCH_THRESHOLD_PX = 768 * 768
     #: LR pixels per launch that "auto" sizes its groups to
     MICROBATCH_TARGET_PX = 2 ** 20
 

@@ -35,7 +35,10 @@ through kernel C and learned through kernels A and B, with the serving
 policy's decision per size beside the committed ``results_torch/``
 calls; per-method throughput) and the serving policy itself:
 ``stream(microbatch="auto")`` at the largest size each threshold groups,
-launching C, and A and B, once a group.
+launching C, and A and B, once a group. Last, the committed card record
+(``results_torch/``): each file fresh or stale against this checkout's
+``source_sha256``, and its bicubic 1080p -> 4x row of kernel C and its
+``wp-1e-3-120`` row of kernel A re-timed beside the committed values.
 
 Each phase prints one JSON line; any failure raises (exit code != 0). The
 line before the last lists every ported kernel with its numbers; the last
@@ -50,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import io
 import itertools
+import json
 import pathlib
 import statistics
 import sys
@@ -1518,7 +1522,8 @@ def latency_curve_phase(dev, name_power, zero_counts, read_counts):
                 "batched_ms_per_frame", "batched_gpix_s", "batching_faster",
                 "served_grouped_ms_per_frame", "served_single_ms_per_frame",
                 "served_grouped_passes_ms_per_frame",
-                "served_single_passes_ms_per_frame", "max_u8_delta", "batched_max_u8_vs_single",
+                "served_single_passes_ms_per_frame", "served_grouped_spread",
+                "served_single_spread", "max_u8_delta", "batched_max_u8_vs_single",
                 "plan_build_ms"))
             if name == "classical":
                 line["bound_ms"] = config_bound(key, row)[0]
@@ -1676,6 +1681,60 @@ def serving_policy_path(name_power, zero_counts, read_counts):
           "seconds": time.perf_counter() - t0})
     if failed:
         raise AssertionError(f"serving_policy: {failed}: {lines}")
+    torch.cuda.empty_cache()
+
+
+def results_path(dev, name_power, zero_counts, read_counts):
+    """``results``: every committed ``results_torch/*.json`` fresh or
+    stale against this checkout's ``source_sha256``, and two committed
+    rows of ``method_throughput.json`` re-timed through the same
+    ``bench/methods`` code, with the seven kernels' counts at 0 before and
+    read after: bicubic 1080p -> 4x through kernel C (``resize_row``, the
+    ``pallas_mxu`` candidate of the ``bicubic`` row) and ``wp-1e-3-120``
+    at 348x510 RGBA (``learned_row``: kernel A, writing HWC bytes). Each
+    is printed beside its committed value with the ratio; an output more
+    than 1 u8 from its oracle (the float64 oracle; the graph tail) or
+    launches other than the row's expected ones fail, a timing
+    disagreement does not."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs as cf
+    from bicubic_interpolation_model_tpu_torch.bench import methods
+    t0 = time.perf_counter()
+    sha = cf.source_sha256()
+    files = {name: {"source_sha256": got, "status": state}
+             for name, (got, state) in cf.freshness(sha).items()}
+    kept = json.loads((cf.CARD_RESULTS_DIR / "method_throughput.json")
+                      .read_text())
+    zero_counts()
+    c_row = methods.resize_row(*methods.FULL.hd, 4, "bicubic", "pallas_mxu",
+                               dev=dev)
+    lr = methods.lr_frame(np.random.default_rng(0), methods.FULL, dev)
+    a_row = methods.learned_row(ROOT / "model" / "wp-1e-3-120", lr, dev=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rows = {"bicubic_1080p_4x pallas_mxu": (
+                c_row, kept["bicubic"]["candidates"]["pallas_mxu"]),
+            "wp-1e-3-120": (a_row, kept["wp-1e-3-120"])}
+    lines, bad = {}, []
+    for key, (row, old) in rows.items():
+        lines[key] = {"ms": row["ms_per_frame"],
+                      "committed_ms": old["ms_per_frame"],
+                      "ratio": row["ms_per_frame"] / old["ms_per_frame"],
+                      "max_u8_delta": row["max_u8_delta"],
+                      "launches": {k: v for k, v in row["launches"].items()
+                                   if v},
+                      "launches_as_expected": row["expected_launches"]
+                      == row["launches"]}
+        if row["max_u8_delta"] > 1 \
+                or row["launches"] != row["expected_launches"]:
+            bad.append(key)
+    emit({"phase": "results", "card": name_power, "source_sha256": sha,
+          "committed": kept["_provenance"]["card"], "files": files,
+          "rows": lines, "launches": counts,
+          "seconds": time.perf_counter() - t0})
+    path = ("resize_mxu", "packed_tail_fused")
+    if bad or any(v for k, v in counts.items() if k not in path) \
+            or not all(counts[k] for k in path):
+        raise AssertionError(f"results: {bad}, launches {counts}")
     torch.cuda.empty_cache()
 
 
@@ -2713,6 +2772,10 @@ def main() -> int:
     # 6k. the serving policy: stream(microbatch="auto") groups as the
     # committed curves say, through kernels C, A and B
     serving_policy_path(name_power, zero_counts, read_counts)
+
+    # 6l. the committed card record: each file fresh or stale, a row of
+    # kernel C and one of kernel A re-timed beside their committed values
+    results_path(dev, name_power, zero_counts, read_counts)
 
     # 7. kernels line, then the card, then the result
     emit({"kernels": [

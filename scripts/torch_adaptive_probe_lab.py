@@ -2,6 +2,7 @@
 and exemption probes.
 
     python3 scripts/torch_adaptive_probe_lab.py [--h 1080 --w 1920] [--cpu]
+        [--commit REV]
 
 Counterpart of ``scripts/adaptive_probe_lab.py`` (the TPU lab). Runs
 kernel E (``csrc/adaptive.cu``) at 4x, planar as the TPU lab times it, on
@@ -15,9 +16,11 @@ then timed by ``bench/suite.chained_bench``. Prints the attribution of the
 TPU lab: ``law_alu`` = full - law_scratch, ``luma_reads`` = law_scratch -
 law_const (the TPU lab's scratch traffic), ``eq_term`` = law_const -
 fma_only, and ``fma_core_plus_epilogue`` = fma_only, with the card's name
-and power limit, and writes ``build/labs/adaptive_probe_lab.json``. With
-``--cpu`` it checks the plain versions and measures nothing. Imports
-nothing of JAX.
+and power limit, and writes ``build/labs/adaptive_probe_lab.json``,
+stamped with the card, torch, the source revision (``--commit``, else
+``git rev-parse HEAD`` where the checkout has its history) and the date.
+With ``--cpu`` it checks the plain versions and measures nothing (stamped
+backend ``cpu``). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bicubic_interpolation_model_tpu_torch.bench import (  # noqa: E402
-    labs, suite)
+    configs, labs, suite)
 
 MODES = ("full", "law_scratch", "law_const", "fma_only")
 
@@ -46,7 +49,11 @@ def attribution(ms: dict) -> dict:
 
 
 def main(argv=None) -> int:
-    args = labs.lab_parser().parse_args(argv)
+    ap = labs.lab_parser()
+    ap.add_argument("--commit", default=None,
+                    help="the source revision to stamp (default: git "
+                         "rev-parse HEAD where the checkout has history)")
+    args = ap.parse_args(argv)
     dev, card = labs.lab_device(args.cpu)
     frame = labs.all_class_frames(np.random.default_rng(0), 1, args.h,
                                 args.w, 4)
@@ -64,10 +71,12 @@ def main(argv=None) -> int:
                   if r["name"].endswith("_c1") == (c == 1)}
             attr[f"c{c}"] = attribution(ms)
     labs.emit({"attribution_ms": attr, "card": card})
-    table = {"card": card, "geometry": f"{args.h}x{args.w} -> 4x planar, "
+    table = {"backend": dev.type, "card": card,
+             "geometry": f"{args.h}x{args.w} -> 4x planar, "
              "all-class frame, C = 4 and 1",
              "timing": None if args.cpu else "bench/suite.chained_bench",
-             "rows": rows, "attribution_ms": attr}
+             "rows": rows, "attribution_ms": attr,
+             "_provenance": configs.provenance(dev, card, args.commit)}
     labs.write_table("adaptive_probe_lab", table)
     return 0
 

@@ -13,9 +13,11 @@ frames). Each size runs one frame a launch against the group that
 (``serving.group_size`` with no threshold: ``round(2**20 / N^2)`` frames
 classical, ``round(2**18 / N^2)`` learned, at most 64), per frame at the
 program-output boundary (``bench/suite.bench_program_output``) and as
-served ``stream()`` frames with their fetches (host clock: the median of
-three passes of each mode, in turns, each at least 0.25 s; every pass
-is kept in the row). Beside each
+served ``stream()`` frames with their fetches (host clock: after an
+untimed pass of each mode, the median of five passes of each mode, in
+turns, each at least 0.25 s; every pass and each mode's spread, slowest
+over fastest pass, are kept in the row beside this call's reading by the
+rule, ``batching_wins``). Beside each
 size it prints whether the serving policy groups that size now and
 whether grouping won on this card (``bench/configs.batching_wins``), with
 the card's name and power limit; at the end, the thresholds that this
@@ -59,7 +61,9 @@ def print_table(name, table, timed):
               f"{_fmt(r['batched_ms_per_frame'], '8.4f')} ms/frame  "
               f"served {_fmt(r['served_single_ms_per_frame'], '7.4f')} / "
               f"grouped {_fmt(r['served_grouped_ms_per_frame'], '7.4f')} "
-              f"ms/frame  policy groups: {policy}  batching wins: {wins}",
+              f"ms/frame (spread {_fmt(r['served_single_spread'], '.2f')} / "
+              f"{_fmt(r['served_grouped_spread'], '.2f')})  "
+              f"policy groups: {policy}  batching wins: {wins}",
               flush=True)
     if timed:
         print(f"# {name}: this call alone gives MICROBATCH_THRESHOLD_PX = "

@@ -1,6 +1,7 @@
 """Per-method throughput on one card.
 
     python3 scripts/torch_method_throughput.py [--only SECTIONS] [--cpu]
+        [--commit REV]
 
 Counterpart of ``scripts/method_throughput.py`` (the TPU script), with its
 sections and ``--only`` flag (``classical,adaptive,learned,neural,
@@ -13,10 +14,12 @@ HR geometry and 4K -> /4, and weight-predictor training steps. Rows come
 from ``bench/methods.run``, stamped with the card's name and power limit;
 times are the suite's CUDA-event slopes. Writes
 ``build/results/method_throughput.json``, keeping the rows of sections not
-run. Exits 1 when a row's output of the frame it times reads more than 1 u8
-from its oracle or (on the card) a row's launches differ from its expected
-ones. With ``--cpu`` it runs the sections once at a small size and measures
-nothing. Imports nothing of JAX.
+run, stamped with the card, torch, the source revision (``--commit``, else
+``git rev-parse HEAD`` where the checkout has its history) and the date
+of this run. Exits 1 when a row's output of the frame it times reads more
+than 1 u8 from its oracle or (on the card) a row's launches differ from
+its expected ones. With ``--cpu`` it runs the sections once at a small size and measures
+nothing (stamped backend ``cpu``). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run the sections once at a small size; time "
                          "nothing")
+    ap.add_argument("--commit", default=None,
+                    help="the source revision to stamp (default: git "
+                         "rev-parse HEAD where the checkout has history)")
     args = ap.parse_args(argv)
     sections = set(filter(None, args.only.split(","))) or set(
         methods.SECTIONS)
@@ -52,7 +58,8 @@ def main(argv=None) -> int:
     path = configs.RESULTS_DIR / "method_throughput.json"
     out = json.loads(path.read_text()) if path.exists() else {}
     out.update(fresh)
-    out["card"] = card
+    out.update(backend=dev.type, card=card,
+               _provenance=configs.provenance(dev, card, args.commit))
     configs.write_results("method_throughput", out)
     bad = methods.failures(fresh, dev.type == "cuda")
     for b in bad:

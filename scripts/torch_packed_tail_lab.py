@@ -1,7 +1,7 @@
 """Stage table of the learned path on one card: the whole packed forward,
 its upstream, the tail alone and kernel G's stage probes.
 
-    python3 scripts/torch_packed_tail_lab.py [--cpu]
+    python3 scripts/torch_packed_tail_lab.py [--cpu] [--commit REV]
 
 Counterpart of ``scripts/packed_tail_lab.py`` (the TPU lab), on the
 committed checkpoint ``model/wp-1e-3-120`` at the 348x510 RGBA frame ->
@@ -22,9 +22,11 @@ committed checkpoint ``model/wp-1e-3-120`` at the 348x510 RGBA frame ->
   first, and the deltas between consecutive stages.
 
 Prints the card's name and power limit beside every number and writes
-``build/labs/packed_tail_lab.json``. With ``--cpu`` it checks the probes'
-plain versions on a 24x40 crop and measures nothing. Imports nothing of
-JAX.
+``build/labs/packed_tail_lab.json``, stamped with the card, torch, the
+source revision (``--commit``, else ``git rev-parse HEAD`` where the
+checkout has its history) and the date. With ``--cpu`` it checks the
+probes' plain versions on a 24x40 crop and measures nothing (stamped
+backend ``cpu``). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from bicubic_interpolation_model_tpu_torch.bench import (  # noqa: E402
-    labs, suite)
+    configs, labs, suite)
 from bicubic_interpolation_model_tpu_torch.evaluation import (  # noqa: E402
     model_analysis)
 from bicubic_interpolation_model_tpu_torch.models import (  # noqa: E402
@@ -67,7 +69,11 @@ def upstream(p, lr_u8, dtype):
 
 
 def main(argv=None) -> int:
-    args = labs.lab_parser(size=False).parse_args(argv)
+    ap = labs.lab_parser(size=False)
+    ap.add_argument("--commit", default=None,
+                    help="the source revision to stamp (default: git "
+                         "rev-parse HEAD where the checkout has history)")
+    args = ap.parse_args(argv)
     dev, card = labs.lab_device(args.cpu)
     h, w = (24, 40) if args.cpu else FRAME
     model, params = model_analysis._load_model_any(CKPT, device=dev)
@@ -116,10 +122,12 @@ def main(argv=None) -> int:
                   if r["name"].endswith(dname)}
             deltas[dname] = labs.stage_deltas(
                 ms, ["matmul", "tanh", "apply", "full"])
-    table = {"card": card, "geometry": f"{h}x{w}x4 -> 4x",
+    table = {"backend": dev.type, "card": card,
+             "geometry": f"{h}x{w}x4 -> 4x",
              "checkpoint": CKPT.name, "convention": "train",
              "timing": "bench/suite.chained_bench" if timed else None,
-             "rows": rows, "probes": probes, "probe_deltas_ms": deltas}
+             "rows": rows, "probes": probes, "probe_deltas_ms": deltas,
+             "_provenance": configs.provenance(dev, card, args.commit)}
     labs.emit({"probe_deltas_ms": deltas, "card": card})
     labs.write_table("packed_tail_lab", table)
     return 0

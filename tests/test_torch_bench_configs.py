@@ -355,6 +355,18 @@ def test_script_exits_0_on_the_cpu(cpu_tables, name):
     assert cpu_tables[name][0] == 0
 
 
+@pytest.mark.parametrize("name", ["bench_configs", "latency_curve",
+                                  "method_throughput"])
+def test_cpu_table_is_stamped_cpu(cpu_tables, name):
+    """A ``--cpu`` table says so (backend ``cpu``), so no CPU run can pass
+    for a card run in ``results_torch/``."""
+    table = cpu_tables[name][1]
+    prov = table["_provenance"]
+    assert prov["backend"] == table["backend"] == "cpu"
+    assert prov["source_sha256"] == configs.source_sha256()
+    assert prov["card"] == table["card"] and prov["date"]
+
+
 def test_bench_configs_rows_hold_the_jax_rows_keys(cpu_tables):
     rows = cpu_tables["bench_configs"][1]["configs"]
     for key, jrow in _record("bench_configs")["configs"].items():

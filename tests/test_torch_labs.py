@@ -31,6 +31,7 @@ properties those sources state, each cited by line in its test.
 """
 
 import importlib.util
+import json
 import pathlib
 
 import jax.numpy as jnp
@@ -375,3 +376,27 @@ def test_lab_cases_name_the_tpu_lab_lines():
         path, line = case.replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
         assert any(k in text for k in ("def ", "lambda s")), case.replaces
+
+
+# ---- the stamped labs' --cpu tables -------------------------------------
+
+
+@pytest.mark.parametrize("lab,args", [
+    ("packed_tail_lab", ["--cpu"]),
+    ("adaptive_probe_lab", ["--cpu", "--h", "24", "--w", "40"])])
+def test_cpu_table_is_stamped_cpu(lab, args, tmp_path, monkeypatch):
+    """The two labs whose tables ``results_torch/`` holds stamp them; a
+    ``--cpu`` table says so (backend ``cpu``), so no CPU run can pass for
+    a card run."""
+    from bicubic_interpolation_model_tpu_torch.bench import configs
+    monkeypatch.setattr(labs, "LAB_DIR", tmp_path)
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{lab}", ROOT / "scripts" / f"torch_{lab}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main([*args, "--commit", "test"]) == 0
+    table = json.loads((tmp_path / f"{lab}.json").read_text())
+    prov = table["_provenance"]
+    assert prov["backend"] == table["backend"] == "cpu"
+    assert prov["commit"] == "test" and prov["card"] == table["card"]
+    assert prov["source_sha256"] == configs.source_sha256()

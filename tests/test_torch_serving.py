@@ -124,9 +124,11 @@ def test_needs_a_card_unless_cpu_is_asked():
 
 def test_port_imports_nothing_of_jax():
     """Importing every module of the port, the port's bench script
-    ``bench_torch.py``, its lab scripts ``scripts/torch_*_lab.py`` and its
+    ``bench_torch.py``, its lab scripts ``scripts/torch_*_lab.py``, its
     measurement scripts ``scripts/torch_{bench_configs,latency_curve,
-    method_throughput,launch_trace}.py`` leaves jax, flax, optax, msgpack and the JAX
+    method_throughput,launch_trace}.py`` and the card record's refresh and
+    renderer ``scripts/torch_{refresh_results,render_readme_results}.py``
+    leaves jax, flax, optax, msgpack and the JAX
     package out of sys.modules (names matched exactly: the port's own
     package shares the JAX package's prefix)."""
     labs = ["torch_kernel_lab", "torch_mxu_lab", "torch_packed_tail_lab",
@@ -134,7 +136,8 @@ def test_port_imports_nothing_of_jax():
     assert sorted(p.stem for p in (ROOT / "scripts").glob(
         "torch_*_lab.py")) == sorted(labs)
     measuring = ["torch_bench_configs", "torch_latency_curve",
-                 "torch_method_throughput", "torch_launch_trace"]
+                 "torch_method_throughput", "torch_launch_trace",
+                 "torch_refresh_results", "torch_render_readme_results"]
     assert all((ROOT / "scripts" / f"{m}.py").exists() for m in measuring)
     mods = ["bench_torch", *labs, *measuring]
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(

@@ -5,7 +5,9 @@ the JAX package's policy to its TPU curve).
 ``results_torch/latency_curve_call{1,2,3}.json`` are three separate runs
 of ``scripts/torch_latency_curve.py`` on one NVIDIA H100, committed as
 written; ``results_torch/bench_configs.json`` is one run of
-``scripts/torch_bench_configs.py``. The rule, the JAX package's: at a
+``scripts/torch_bench_configs.py``; all come from one run of
+``scripts/torch_refresh_results.py`` with the card's other tables. The
+rule, the JAX package's: at a
 measured size batching wins when a grouped frame takes at most 1.05 x a
 frame launched alone, at the program-output boundary and as a served
 ``stream()`` frame with its fetch, in every call. ``stream(microbatch=
@@ -124,7 +126,7 @@ def test_every_size_is_measured_at_the_streams_group(calls, curve):
 def test_served_rows_are_timed_over_a_window(calls, curve):
     """Each served mode is the median of ``SERVED_PASSES`` passes, each
     lasting at least ``SERVED_WINDOW_S`` (0.25 s) over whole groups, not
-    one short pass."""
+    one short pass, and the row records their spread."""
     tables, _ = _tables(calls, curve)
     window_ms = configs.SERVED_WINDOW_S * 1e3
     for t in tables:
@@ -136,15 +138,17 @@ def test_served_rows_are_timed_over_a_window(calls, curve):
                 assert len(passes) == len(ks) == configs.SERVED_PASSES
                 assert row[f"{mode}_ms_per_frame"] == sorted(passes)[
                     len(passes) // 2]
+                assert row[f"{mode}_spread"] == max(passes) / min(passes)
                 for k, ms in zip(ks, passes):
                     assert k % per == 0, (size, mode, k)
                     assert k * ms >= window_ms * (1 - 1e-9), (size, mode)
 
 
 def test_every_file_comes_from_one_source():
-    """The four committed runs name one ``source_sha256``
-    (``configs.source_sha256``: the port and the two scripts), so one
-    code measured them all."""
+    """The committed runs (one refresh: ``scripts/
+    torch_refresh_results.py``) name one ``source_sha256``
+    (``configs.source_sha256``: the port, the five producer scripts and
+    the refresh), so one code measured them all."""
     shas = {json.loads(p.read_text())["_provenance"]["source_sha256"]
             for p in sorted(CARD_DIR.glob("*.json"))}
     assert len(shas) == 1 and len(shas.pop()) == 64
@@ -165,10 +169,8 @@ def test_auto_respects_the_c1_microbatch_row():
         assert groups
 
 
-@pytest.mark.parametrize("name", ["latency_curve_call1.json",
-                                  "latency_curve_call2.json",
-                                  "latency_curve_call3.json",
-                                  "bench_configs.json"])
+@pytest.mark.parametrize("name", sorted(p.name for p in
+                                         CARD_DIR.glob("*.json")))
 def test_every_file_is_a_card_run(name):
     """Each committed file names an NVIDIA card and its power limit (as
     ``nvidia-smi --query-gpu=name,power.limit`` gives them), the torch
