@@ -41,7 +41,12 @@ data        the header-prefixed float32 tensor files (``binfmt``), DIV2K
             sample generation (``div2k``), the Y-less loader
             (``onthefly``), dataset validation
 utils       image I/O (native codec or PIL), workspace configuration,
-            profiling (torch.profiler traces, memory, anomaly mode)
+            profiling (torch.profiler traces, memory, anomaly mode) and
+            ``span``: the serving path's ranges, recorded only under a
+            profiler (``serve.upload``, ``model.step``,
+            ``resize.dispatch``, ``serve.fetch.start``,
+            ``serve.fetch.wait``, ``stream.dispatch``) and
+            ``span_split``, a trace's host and idle time by them
 serving     ModelUpscaler (WeightPredictor and direct checkpoints), Upscaler
 parallel    a named grid of devices (``Mesh``, which may repeat a device),
             band-sharded learned / classical / adaptive SR of one frame

@@ -35,6 +35,7 @@ from ..ops.learned import (_apply_round, _apply_weights_phase, _axis_offsets,
                            _edge_pad_chw, offset_map)
 from ..ops.packed_tail import packed_tail_fused, packed_tail_supported
 from ..ops.planar import pack_rgba32
+from ..utils.profiling import span
 from .layers import conv_nhwc, tree_map
 from .weight_predictor import LAYERS, forward_params
 
@@ -336,8 +337,9 @@ def super_resolve_direct(model, params, lr_u8, *, compute_dtype=None):
     bf16 gate these conv stacks miss; ``torch.bfloat16`` (or
     "bfloat16") opts in, ``torch.float64`` runs the same function as a
     reference."""
-    lr = _as_frames(lr_u8, _device_of(_tree(params)))
-    return _direct_frames(model, params, lr[None], compute_dtype)[0]
+    with span("model.step"):
+        lr = _as_frames(lr_u8, _device_of(_tree(params)))
+        return _direct_frames(model, params, lr[None], compute_dtype)[0]
 
 
 @torch.no_grad()
@@ -358,29 +360,32 @@ def super_resolve(model, params, lr_u8, scale: int = 4,
     ``tail`` selects the packed path's tail and ``tail_operands`` may
     carry its precomputed operands (see :func:`_super_resolve_packed`).
     """
-    p = _tree(params)
-    lr = _as_frames(lr_u8, _device_of(p))
-    if layout not in ("hwc", "hwc32"):
-        raise ValueError(f"layout must be 'hwc' or 'hwc32', got {layout!r}")
-    if layout == "hwc32" and lr.shape[-1] != 4:
-        raise ValueError("layout='hwc32' packs 4 channel bytes per word; "
-                         f"got C={lr.shape[-1]} (RGBA frames only)")
-    if type(model).__name__ != "WeightPredictor":
-        if layout != "hwc":
-            raise ValueError(f"{type(model).__name__} returns RGB frames; "
-                             "layout='hwc32' is for RGBA WeightPredictor "
-                             "output")
-        return super_resolve_direct(model, params, lr,
-                                    compute_dtype=compute_dtype)
-    if not exact and _is_weight_predictor(model, p):
-        return _super_resolve_packed(params, lr, int(scale), convention,
-                                     dtype=_default_dtype(compute_dtype),
-                                     tail=tail, opaque_alpha=opaque_alpha,
-                                     layout=layout,
-                                     tail_operands=tail_operands)
-    out = _super_resolve_fused(model, params, lr, int(scale), convention)
-    # RGBA32 words as a byte view of the same device memory: no host trip
-    return pack_rgba32(out) if layout == "hwc32" else out
+    with span("model.step"):
+        p = _tree(params)
+        lr = _as_frames(lr_u8, _device_of(p))
+        if layout not in ("hwc", "hwc32"):
+            raise ValueError(
+                f"layout must be 'hwc' or 'hwc32', got {layout!r}")
+        if layout == "hwc32" and lr.shape[-1] != 4:
+            raise ValueError("layout='hwc32' packs 4 channel bytes per "
+                             f"word; got C={lr.shape[-1]} (RGBA frames "
+                             "only)")
+        if type(model).__name__ != "WeightPredictor":
+            if layout != "hwc":
+                raise ValueError(f"{type(model).__name__} returns RGB "
+                                 "frames; layout='hwc32' is for RGBA "
+                                 "WeightPredictor output")
+            return _direct_frames(model, params, lr[None], compute_dtype)[0]
+        if not exact and _is_weight_predictor(model, p):
+            return _super_resolve_packed(
+                params, lr, int(scale), convention,
+                dtype=_default_dtype(compute_dtype), tail=tail,
+                opaque_alpha=opaque_alpha, layout=layout,
+                tail_operands=tail_operands)
+        out = _super_resolve_fused(model, params, lr, int(scale), convention)
+        # RGBA32 words as a byte view of the same device memory: no host
+        # trip
+        return pack_rgba32(out) if layout == "hwc32" else out
 
 
 @torch.no_grad()
@@ -394,16 +399,18 @@ def super_resolve_batch(model, params, lrs_u8, scale: int = 4,
     direct-regression model. Same numerics contracts as
     :func:`super_resolve` / :func:`super_resolve_direct`; returns uint8
     [B, H_sr, W_sr, C]."""
-    p = _tree(params)
-    lrs = _as_frames(lrs_u8, _device_of(p))
-    if lrs.dim() != 4:
-        raise ValueError("expected [B, H, W, C] uint8")
-    if type(model).__name__ != "WeightPredictor":
-        return _direct_frames(model, params, lrs, compute_dtype)
-    if not exact and _is_weight_predictor(model, p):
-        return _super_resolve_packed(params, lrs, int(scale), convention,
-                                     dtype=_default_dtype(compute_dtype),
-                                     tail=tail, opaque_alpha=opaque_alpha,
-                                     tail_operands=tail_operands)
-    return torch.stack([_super_resolve_fused(model, params, im, int(scale),
-                                             convention) for im in lrs])
+    with span("model.step"):
+        p = _tree(params)
+        lrs = _as_frames(lrs_u8, _device_of(p))
+        if lrs.dim() != 4:
+            raise ValueError("expected [B, H, W, C] uint8")
+        if type(model).__name__ != "WeightPredictor":
+            return _direct_frames(model, params, lrs, compute_dtype)
+        if not exact and _is_weight_predictor(model, p):
+            return _super_resolve_packed(
+                params, lrs, int(scale), convention,
+                dtype=_default_dtype(compute_dtype), tail=tail,
+                opaque_alpha=opaque_alpha, tail_operands=tail_operands)
+        return torch.stack([_super_resolve_fused(model, params, im,
+                                                 int(scale), convention)
+                            for im in lrs])

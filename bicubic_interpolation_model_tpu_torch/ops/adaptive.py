@@ -39,6 +39,7 @@ import torch
 
 from ..core.kernels import cubic_keys
 from ..runtime.device import resolve_device
+from ..utils.profiling import span
 from .resize import round_u8
 
 #: region classes of a centre pixel, as the kernel and the plain versions
@@ -199,24 +200,26 @@ def _adaptive(img, scale, a, impl, device, batched, layout, weight_cache):
     if layout not in ("hwc", "auto"):
         raise ValueError(f"unknown layout {layout!r}")
     dev = resolve_device(device)
-    img = torch.as_tensor(img).to(dev)
-    if img.dtype != torch.uint8:
-        raise ValueError("adaptive_resize expects uint8 input")
-    if img.dim() != 3 + batched:
-        raise ValueError(
-            f"expected {'[B, H, W, C]' if batched else '[H, W, C]'} uint8, "
-            f"got shape {tuple(img.shape)}")
-    from .adaptive_fused import adaptive_resize_fused, fused_takes
-    if impl == "auto":
-        impl = ("pallas" if dev.type == "cuda"
-                and fused_takes(scale, img.shape[-1]) else "jnp")
-    if impl == "pallas":
-        words = (layout == "auto" and dev.type == "cuda" and not batched
-                 and img.shape[-1] == 4)
-        return adaptive_resize_fused(img, int(scale), float(a),
-                                     layout="hwc32" if words else "hwc",
-                                     weight_cache=weight_cache)
-    return _adaptive_resize_u8(img, int(scale), float(a))
+    with span("serve.upload"):
+        img = torch.as_tensor(img).to(dev)
+    with span("resize.dispatch"):
+        if img.dtype != torch.uint8:
+            raise ValueError("adaptive_resize expects uint8 input")
+        if img.dim() != 3 + batched:
+            raise ValueError(
+                f"expected {'[B, H, W, C]' if batched else '[H, W, C]'} "
+                f"uint8, got shape {tuple(img.shape)}")
+        from .adaptive_fused import adaptive_resize_fused, fused_takes
+        if impl == "auto":
+            impl = ("pallas" if dev.type == "cuda"
+                    and fused_takes(scale, img.shape[-1]) else "jnp")
+        if impl == "pallas":
+            words = (layout == "auto" and dev.type == "cuda" and not batched
+                     and img.shape[-1] == 4)
+            return adaptive_resize_fused(img, int(scale), float(a),
+                                         layout="hwc32" if words else "hwc",
+                                         weight_cache=weight_cache)
+        return _adaptive_resize_u8(img, int(scale), float(a))
 
 
 def adaptive_resize(img_u8, scale: int, a: float = -0.5, *,

@@ -43,6 +43,7 @@ import torch
 from ..core import plan as planlib
 from ..core.plan import AxisPlan
 from ..runtime.device import resolve_device
+from ..utils.profiling import span
 
 #: the classical methods by name, as the JAX package types them
 Method = Literal["nearest", "bilinear", "bicubic", "lanczos"]
@@ -244,15 +245,25 @@ def _resize_graph(img, scale, method, impl, a, lanczos_a):
 def _resize(img, scale, method, impl, a, lanczos_a, device, batched,
             weight_cache=None):
     dev = resolve_device(device)
-    img = torch.as_tensor(img).to(dev)
+    with span("serve.upload"):
+        img = torch.as_tensor(img).to(dev)
+    with span("resize.dispatch"):
+        return _dispatch(img, scale, method, impl, a, lanczos_a, dev,
+                         batched, weight_cache)
+
+
+def _dispatch(img, scale, method, impl, a, lanczos_a, dev, batched,
+              weight_cache):
+    """The route of a tensor on ``dev``: a kernel's wrapper (with the
+    caller's plan cache) or the plain graph."""
     want = (3, 4) if batched else (2, 3)
     if img.dim() not in want:
         raise ValueError(f"expected an image of {want[0]} or {want[1]} "
                          f"dimensions, got shape {tuple(img.shape)}")
     if batched and img.dim() == 3:
         img = img[..., None]                    # [B, H, W] gray frames
-        return _resize(img, scale, method, impl, a, lanczos_a, dev,
-                       True, weight_cache)[..., 0]
+        return _dispatch(img, scale, method, impl, a, lanczos_a, dev,
+                         True, weight_cache)[..., 0]
     if impl == "auto" and dev.type == "cuda":
         from .mxu import mxu_takes
         c = img.shape[-1] if img.dim() - batched == 3 else 1

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .runtime.device import resolve_device
+from .utils.profiling import span
 
 
 def _host_view(a: np.ndarray, words: tuple | None) -> np.ndarray:
@@ -45,30 +46,36 @@ def _start_fetch(out: torch.Tensor, side: torch.cuda.Stream | None = None):
     frames reuses a few blocks; one that keeps N frames holds N pinned
     blocks). ``out`` is held until the copy is done, so its device memory is
     not reused under the copy. A CPU tensor is viewed as numpy, as it
-    always was."""
-    words = tuple(out.shape) if (out.dtype == torch.uint32
-                                 and out.dim() == 2) else None
-    if words is not None:
-        out = out.contiguous().view(torch.uint8)
-    if out.device.type != "cuda":
-        return lambda: _host_view(out.cpu().numpy(), words)
-    pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    stream = torch.cuda.current_stream(out.device)
-    if side is not None:
-        made = torch.cuda.Event()
-        made.record(stream)
-        side.wait_event(made)
-        stream = side
-    with torch.cuda.stream(stream):
-        pinned.copy_(out, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record(stream)
+    always was. The start is the span ``serve.fetch.start``, the
+    callable's wait ``serve.fetch.wait``."""
+    with span("serve.fetch.start"):
+        words = tuple(out.shape) if (out.dtype == torch.uint32
+                                     and out.dim() == 2) else None
+        if words is not None:
+            out = out.contiguous().view(torch.uint8)
+        if out.device.type != "cuda":
+            def finish():
+                with span("serve.fetch.wait"):
+                    return _host_view(out.cpu().numpy(), words)
+            return finish
+        pinned = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        stream = torch.cuda.current_stream(out.device)
+        if side is not None:
+            made = torch.cuda.Event()
+            made.record(stream)
+            side.wait_event(made)
+            stream = side
+        with torch.cuda.stream(stream):
+            pinned.copy_(out, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(stream)
 
     def finish():
         nonlocal out
-        copied.synchronize()
-        out = None                       # copied: its device memory may go
-        return _host_view(pinned.numpy(), words)
+        with span("serve.fetch.wait"):
+            copied.synchronize()
+            out = None                   # copied: its device memory may go
+            return _host_view(pinned.numpy(), words)
     return finish
 
 
@@ -84,16 +91,10 @@ def _stream_grouped(frames, single, batched, group_size):
     launch and preserve output order. Each group's device→host copy starts
     on a side stream as soon as its kernels are dispatched, and the next
     group is dispatched before the generator waits on that copy: on the
-    card frame i-1's copy overlaps frame i's kernels."""
+    card frame i-1's copy overlaps frame i's kernels. A group's dispatch is
+    the span ``stream.dispatch``, closed before any frame is yielded."""
     side = None
-
-    def dispatch(group):
-        nonlocal side
-        out = single(group[0]) if len(group) == 1 else batched(
-            np.stack(group))
-        if side is None and out.device.type == "cuda":
-            side = torch.cuda.Stream(out.device)
-        return _start_fetch(out, side), len(group)
+    pending = None
 
     def emit(finish, n):
         host = finish()
@@ -103,29 +104,33 @@ def _stream_grouped(frames, single, batched, group_size):
         for i in range(n):                 # [B, H', W', C]
             yield host[i]
 
-    pending = None
+    def step(group):
+        """Dispatch ``group`` and start its fetch, then hand out the
+        pending group's frames; ``group`` is pending next."""
+        nonlocal side, pending
+        with span("stream.dispatch"):
+            out = single(group[0]) if len(group) == 1 else batched(
+                np.stack(group))
+            if side is None and out.device.type == "cuda":
+                side = torch.cuda.Stream(out.device)
+            started = _start_fetch(out, side), len(group)
+        if pending is not None:
+            yield from emit(*pending)
+        pending = started
+
     group: list[np.ndarray] = []
     for frame in frames:
         img = np.asarray(frame)
         limit = group_size(img)
         if group and (img.shape != group[0].shape or len(group) >= limit):
-            out = dispatch(group)
+            yield from step(group)
             group = []
-            if pending is not None:
-                yield from emit(*pending)
-            pending = out
         group.append(img)
         if len(group) >= limit:
-            out = dispatch(group)
+            yield from step(group)
             group = []
-            if pending is not None:
-                yield from emit(*pending)
-            pending = out
     if group:
-        out = dispatch(group)
-        if pending is not None:
-            yield from emit(*pending)
-        pending = out
+        yield from step(group)
     if pending is not None:
         yield from emit(*pending)
 
@@ -307,7 +312,8 @@ class ModelUpscaler:
         view the bytes yourself); otherwise uint8 [H*S, W*S, C], with C = 3
         for a direct model.
         """
-        lr = torch.as_tensor(lr_u8).to(self._device)
+        with span("serve.upload"):
+            lr = torch.as_tensor(lr_u8).to(self._device)
         if self._direct:
             from .models.inference import super_resolve_direct
             out = super_resolve_direct(self.model, self.params, lr[..., :3])
@@ -325,7 +331,8 @@ class ModelUpscaler:
         kernel's leading grid dimension, or the convs' batch); uint8
         [B, H*S, W*S, C], C = 3 for a direct model."""
         from .models.inference import super_resolve_batch
-        lrs = torch.as_tensor(lrs_u8).to(self._device)
+        with span("serve.upload"):
+            lrs = torch.as_tensor(lrs_u8).to(self._device)
         if self._direct:
             lrs = lrs[..., :3]
         out = super_resolve_batch(self.model, self.params, lrs, **self._kw())

@@ -126,7 +126,7 @@ def test_port_imports_nothing_of_jax():
     """Importing every module of the port, the port's bench script
     ``bench_torch.py``, its lab scripts ``scripts/torch_*_lab.py``, its
     measurement scripts ``scripts/torch_{bench_configs,latency_curve,
-    method_throughput,launch_trace}.py`` and the card record's refresh and
+    method_throughput,launch_trace,span_split}.py`` and the card record's refresh and
     renderer ``scripts/torch_{refresh_results,render_readme_results}.py``
     leaves jax, flax, optax, msgpack and the JAX
     package out of sys.modules (names matched exactly: the port's own
@@ -137,7 +137,7 @@ def test_port_imports_nothing_of_jax():
         "torch_*_lab.py")) == sorted(labs)
     measuring = ["torch_bench_configs", "torch_latency_curve",
                  "torch_method_throughput", "torch_launch_trace",
-                 "torch_refresh_results", "torch_render_readme_results"]
+                 "torch_span_split", "torch_refresh_results", "torch_render_readme_results"]
     assert all((ROOT / "scripts" / f"{m}.py").exists() for m in measuring)
     mods = ["bench_torch", *labs, *measuring]
     for p in sorted((ROOT / "bicubic_interpolation_model_tpu_torch").rglob(
