@@ -254,6 +254,79 @@ __device__ __forceinline__ void apply_store(
   if (t == 1 && store1) *out1 = word[1];
 }
 
+// round half to even, clipped to [0, 255]: v + 1.5 * 2^23 rounds to an
+// integer, ties to even, as __float2int_rn does, for |v| < 2^22 (the
+// apply's sums stay below 2^13); one addition on the full-rate pipe, never
+// contracted into a preceding multiply
+__device__ __forceinline__ int round_u8(float v) {
+  const int r = __float_as_int(__fadd_rn(v, 12582912.f)) - 0x4B400000;
+  return min(max(r, 0), 255);
+}
+
+// apply_store for c = 4 (kernel A): the same sums in the same order, so the
+// same bytes, with each tap's four channels read by one 16-byte load (the
+// window's pixels 16-byte aligned in shared memory) and rounded by
+// round_u8. The window's columns cover every tap of the lane's pixels
+// (col0 + 18 at most), so none is clamped.
+__device__ __forceinline__ void apply_store4(
+    const Acc& acc, const float* lr, const int (&rowoff)[4], int col0,
+    int n_ch, bool store0, bool store1, uint32_t* out0, uint32_t* out1,
+    int lane) {
+  const int t = lane & 3;
+  const float* base[2];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+    base[nt] = lr + ((t >> 1) ? rowoff[2 * nt + 1] : rowoff[2 * nt]) +
+               (col0 + 2 * (t & 1)) * 4;
+  float wt[2][4];
+  float4 px[2][4];
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int nt = k >> 1, j = k & 1;
+      wt[p][k] = fast_tanh(acc_value(acc, nt, 2 * p + j));
+      px[p][k] =
+          *reinterpret_cast<const float4*>(base[nt] + (8 * p + j) * 4);
+    }
+  }
+  float s[2][4];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float v = 0.f;
+      if (ch < n_ch) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float x = ch == 0 ? px[p][k].x
+                          : ch == 1 ? px[p][k].y
+                          : ch == 2 ? px[p][k].z : px[p][k].w;
+          v = fmaf(wt[p][k], x, v);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v += wt[p][k];
+      }
+      s[p][ch] = v;
+    }
+  // the quad sums as apply_store takes them, (s_t + s_t^1) + (s_t^2 +
+  // s_t^3), halved in the first step: lanes t = 0, 2 keep pixel 0's pair
+  // sums and lanes t = 1, 3 pixel 1's, each sending the other pixel's
+  const int mine = t & 1;
+  uint32_t word = 0u;
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    float v = mine ? s[1][ch] : s[0][ch];
+    v += __shfl_xor_sync(0xffffffffu, mine ? s[0][ch] : s[1][ch], 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (ch >= n_ch) v *= 255.f;
+    word |= (uint32_t)round_u8(v) << (8 * ch);
+  }
+  if (t == 0 && store0) *out0 = word;
+  if (t == 1 && store1) *out1 = word;
+}
+
 // Kernel G's stage probes: the sum of a pixel's 16 conv_out values (TANH:
 // after tanh) for the lane's two pixels, over the quad by two xor shuffles,
 // stored as f32 bits where apply_store stores the pixel's word. All lanes
@@ -288,6 +361,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const int n = src_ok ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes global -> shared without registers (kernel A's LR window: one
+// float of a pixel's c channels, so any c and any pixel)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
                : "memory");
 }
 

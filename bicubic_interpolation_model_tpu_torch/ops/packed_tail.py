@@ -40,6 +40,8 @@ phase planar, row phases interleaved, channel bytes little-endian; unpadded);
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..runtime import build
@@ -57,6 +59,22 @@ def packed_tail_supported(scale: int, twof: int, c: int) -> bool:
     """The packed tail covers the WeightPredictor family: S*2F == 128
     (S=4, 2F=32) and channels that pack into one u32 word (c <= 4)."""
     return int(scale) * twof == 128 and 1 <= c <= 4
+
+
+def fused_tail_grid(batch: int, h: int, w: int,
+                    device: torch.device | str = "cuda") -> tuple[int, int]:
+    """Kernel A's persistent grid for ``batch`` frames of h x w on a CUDA
+    ``device``, as its launch decides it: (tiles of the batch, blocks
+    launched). The launch runs one block per SM, or one per tile where
+    there are fewer, and block i walks tiles i, i + blocks, ...; each tile
+    after a block's first has its inputs loaded during the previous tile's
+    conv_out (tiles - blocks of them). Builds the kernel library."""
+    tiles, blocks = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = build.library().bim_packed_tail_fused_grid(
+            batch, h, w, ctypes.byref(tiles), ctypes.byref(blocks))
+    build.check(rc, "packed_tail_fused_grid")
+    return tiles.value, blocks.value
 
 
 def packed_tail_fused_reference(y, lr_f32, kout, bout, kup, ubias, offs,
@@ -145,7 +163,10 @@ def _launch(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b, s,
                 *[t.data_ptr() for t in params], out.data_ptr(),
                 bsz, h, w, c, int(opaque_alpha), stream)
         build.check(rc, "packed_tail_fused")
+        tiles, blocks = fused_tail_grid(bsz, h, w, y.device)
         packed_tail_fused.launches += 1
+        packed_tail_fused.tiles += tiles
+        packed_tail_fused.blocks += blocks
     return out
 
 
@@ -201,6 +222,11 @@ def packed_tail_fused(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b,
 
 
 packed_tail_fused.launches = 0
+#: tiles computed and blocks launched over the card launches: the launch
+#: runs ``fused_tail_grid``'s blocks, one per SM where the tiles outnumber
+#: the SMs, and tiles - blocks of the tiles had their inputs prefetched
+packed_tail_fused.tiles = 0
+packed_tail_fused.blocks = 0
 
 
 def _tail_graph(m, lr_f32, kout, bout, s, halo, opaque_alpha=False):

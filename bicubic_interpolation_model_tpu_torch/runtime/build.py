@@ -55,6 +55,12 @@ _PROBE_SIGNATURES = {
     "bim_packed_tail_map_probe": [_P, _I, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _P],
 }
+# entry points that launch nothing: kernel A's grid as its launch takes it
+_QUERY_SIGNATURES = {
+    "bim_packed_tail_fused_grid": [_I, _I, _I,
+                                   ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.POINTER(ctypes.c_int)],
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -135,8 +141,8 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             build()
             lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-            for name, argtypes in {**_SIGNATURES,
-                                   **_PROBE_SIGNATURES}.items():
+            for name, argtypes in {**_SIGNATURES, **_PROBE_SIGNATURES,
+                                   **_QUERY_SIGNATURES}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int

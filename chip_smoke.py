@@ -71,6 +71,7 @@ GEOMETRIES = [(24, 40, 4), (19, 37, 4), (13, 9, 3), (8, 128, 1),
 # ragged for kernels A's and G's 16-pixel and 8-weight MMA tiles
 MMA_EDGES = [(17, 23, 4), (1, 1, 3), (2, 130, 2)]
 FRAME = (348, 510)                  # LR frame of the 0020 image, 4x -> 1392x2040
+STREAM_FRAME = (540, 960)           # the 540p video frame, 4x -> 4K
 HD = (1080, 1920)                   # classical resize frame, 4x -> 4320x7680
 METHODS = ("nearest", "bilinear", "bicubic", "lanczos")
 SMALL = ((23, 37), (40, 64), (13, 9))
@@ -1792,9 +1793,11 @@ def main() -> int:
           "sources": [s.name for s in build.sources()], "ptxas": ptxas,
           "sass_hmma": build.sass_hmma(build.BUILD_DIR / build.LIB_NAME)})
 
-    # 3. kernel A vs its plain version (batches of 3 at the MMA edges)
+    # 3. kernel A vs its plain version (batches of 3 at the MMA edges; the
+    # 540p stream frame, ~41 tiles a persistent block, last)
     a_err = 0
-    for i, (h, w, c) in enumerate(GEOMETRIES + MMA_EDGES):
+    for i, (h, w, c) in enumerate(GEOMETRIES + MMA_EDGES
+                                  + [STREAM_FRAME + (4,)]):
         batch = 3 if (h, w, c) in MMA_EDGES else 1
         args = tail_case(h, w, c, dev, seed=1000 + i, batch=batch)
         got = pt.packed_tail_fused(*args, layout="planar")
@@ -1830,7 +1833,8 @@ def main() -> int:
     # 4. kernel B vs its plain version
     b_err = 0
     rng = np.random.default_rng(5)
-    for shape in ((4, FRAME[0] * 4, FRAME[1]), (3, 37, 53)):
+    for shape in ((4, FRAME[0] * 4, FRAME[1]), (3, 37, 53),
+                  (4, STREAM_FRAME[0] * 4, STREAM_FRAME[1])):
         planar = torch.from_numpy(
             rng.integers(0, 2 ** 32, shape, dtype=np.uint32)).to(dev)
         got = ilv.interleave_planar_u32(planar)
@@ -2270,6 +2274,22 @@ def main() -> int:
     # their own, left out)
     a_bf16_ms = device_ms(run_a_bf16, kernel="packed_tail_fused_kernel")
     a_plain = device_ms(run_a_plain, n=5)
+    # kernel A at the 540p stream frame (540x960 RGBA): inputs rotate over
+    # 2 copies (132.7 MB of f32 features), f32 and bf16 features
+    a540 = tail_case(*STREAM_FRAME, 4, dev, seed=8)
+    a540_in = [(a540[0].clone(), a540[1].clone()) for _ in range(2)]
+    a540_ms = {}
+    for tag, ins, y_bytes in (
+            ("f32", a540_in, 4),
+            ("bf16", [(y.to(torch.bfloat16), lr) for y, lr in a540_in], 2)):
+        a540_ms[tag] = device_ms(rotating(lambda y, lr: pt.packed_tail_fused(
+            y, lr, *a540[2:], layout="planar"), ins),
+            kernel="packed_tail_fused_kernel")
+        a540_ms[tag + "_bound_ms"] = tail_bound(*STREAM_FRAME, 4, y_bytes)[0]
+    del a540, a540_in
+    torch.cuda.empty_cache()
+    a_tiles = {f"{hh}x{ww}": pt.fused_tail_grid(1, hh, ww, dev)
+               for hh, ww in (FRAME, STREAM_FRAME)}
     b_ms = device_ms(run_b, kernel="interleave_kernel")
     b_plain = device_ms(run_b_plain)
     b_lib = device_ms(run_b_lib)
@@ -2298,6 +2318,10 @@ def main() -> int:
           "packed_tail_bound_ms": a_bound, "packed_tail_bound_by": a_by,
           "packed_tail_bf16_bound_ms": a_bf16_bound,
           "packed_tail_bf16_bound_by": a_bf16_by,
+          "packed_tail_fused_540x960": a540_ms,
+          "packed_tail_fused_tiles_per_block": {
+              k: round(tiles / blocks, 2)
+              for k, (tiles, blocks) in a_tiles.items()},
           "interleave_bytes": b_bytes, "interleave_bound_ms": b_bound})
 
     prof = profile_served_frames(up, frames[0], 5, {

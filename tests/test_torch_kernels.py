@@ -351,6 +351,82 @@ def test_kernel_a_opaque_alpha_and_batch_on_card(cuda):
     assert torch.equal(two[1].view(torch.int32), one.view(torch.int32))
 
 
+# kernel A's persistent grid, (batch, h, w) -> tiles of 6x16 LR pixels:
+# one tile, fewer tiles than SMs, the 540p stream frame, three DIV2K frames
+# whose 5472 tiles an H100's 132 blocks do not divide
+FUSED_GRIDS = [((1, 1, 1), 1), ((1, 24, 40), 12), ((1, 540, 960), 5400),
+               ((3, 339, 510), 5472), ((2, 7, 17), 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tiles", FUSED_GRIDS)
+def test_fused_tail_grid_on_card(cuda, shape, tiles):
+    """The launch's grid as the library reports it: min(tiles, SMs) blocks
+    over 6x16 LR tiles of every frame."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pt.fused_tail_grid(*shape, cuda) == (tiles, min(tiles, sms))
+
+
+def test_fused_tail_counters_move_only_on_card_launches():
+    args = _tail_args(13, 35, 4, seed=2)
+    before = (pt.packed_tail_fused.launches, pt.packed_tail_fused.tiles,
+              pt.packed_tail_fused.blocks)
+    pt.packed_tail_fused(*args, layout="planar")
+    assert (pt.packed_tail_fused.launches, pt.packed_tail_fused.tiles,
+            pt.packed_tail_fused.blocks) == before
+
+
+# kernel A's persistent loop on the card: (batch, h, w, c) by case; "equal"
+# has as many tiles as the card has SMs
+def _loop_case(case, sms):
+    return {"one_tile": (1, 1, 1, 4), "below": (1, 24, 40, 4),
+            "equal": (1, 6, 16 * sms, 3), "above": (1, 97, 301, 2),
+            "stream_540p": (1, 540, 960, 4),
+            "div2k_batch_of_3": (3, 339, 510, 4)}[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_tile", "below", "equal", "above",
+                                  "stream_540p", "div2k_batch_of_3"])
+def test_kernel_a_persistent_loop_on_card(cuda, case):
+    """Tile counts below, equal to and well above the block count: f32,
+    bf16 and opaque alpha against the plain version, the counters moved by
+    the grid's tiles and blocks, and each frame of a batch byte-equal to
+    the frame alone (the block that walks a tile does not show)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b, h, w, c = _loop_case(case, sms)
+    args = _tail_args(1, 1, c, seed=h + w + b, device=cuda)
+    rng = np.random.default_rng(7 * h + w + b)
+    y = torch.as_tensor(rng.normal(0, 0.5, (b, h, w, 32)).astype(np.float32),
+                        device=cuda)
+    lr = torch.as_tensor(rng.integers(0, 256, (b, h, w, c)).astype(
+        np.float32), device=cuda)
+    fn = pt.packed_tail_fused
+    before = (fn.launches, fn.tiles, fn.blocks)
+    got = fn(y, lr, *args[2:], layout="planar")
+    tiles = b * -(-h // 6) * -(-w // 16)
+    assert (fn.launches, fn.tiles, fn.blocks) == (
+        before[0] + 1, before[1] + tiles, before[2] + min(tiles, sms))
+    assert got.shape == (b, 4, 4 * h, w)
+    mx, share = _diff(got, pt.packed_tail_fused_reference(y, lr, *args[2:]))
+    assert mx <= 1 and share < 1e-3
+    yb = y.to(torch.bfloat16)
+    gb = fn(yb, lr, *args[2:], layout="planar")
+    assert _diff(gb, pt.packed_tail_fused_reference(yb, lr, *args[2:]))[0] <= 2
+    if c == 4:
+        lro = lr.clone()
+        lro[..., 3] = 255.0
+        go = fn(y, lro, *args[2:], layout="planar", opaque_alpha=True)
+        ro = pt.packed_tail_fused_reference(y, lro, *args[2:],
+                                            opaque_alpha=True)
+        assert _diff(go, ro)[0] <= 1
+    for i in range(b if b > 1 else 0):
+        alone = fn(y[i], lr[i], *args[2:], layout="planar")
+        assert torch.equal(got[i].view(torch.int32), alone.view(torch.int32))
+        alone_b = fn(yb[i], lr[i], *args[2:], layout="planar")
+        assert torch.equal(gb[i].view(torch.int32), alone_b.view(torch.int32))
+
+
 # frames ragged for the kernels' 16-row (pixel) and 8-column (weight) MMA
 # tiles: a tile row shorter than 16 pixels, a single pixel, 130 columns
 MMA_EDGES = [(17, 23, 4), (1, 1, 3), (2, 130, 2)]
