@@ -22,8 +22,9 @@ train       msgpack checkpoint reader and writer (flax's bytes, no
             (patch and image mode), the direct models and the MLPs
 models      WeightPredictor, PixelShuffleUpsample, learned SR inference;
             the direct-regression models of ``espcn.MODEL_ZOO`` (ESPCN,
-            ESPCNResidual, ESRGANLite, SRResNetTPU: cuDNN convs, no TPU
-            kernel on their path) and ``super_resolve_direct``; the MLP
+            ESPCNResidual, ESRGANLite, the published ESRGAN RRDBNet,
+            SRResNetTPU: cuDNN convs, no TPU kernel on their path) and
+            ``super_resolve_direct``; the MLP
             weight predictors (``mlp_predictor``); the TFJS importer
 ops         offsets / GT weights / apply-weights, the fused packed tail
             (CUDA kernel A) and the tail on a precomputed merged map (CUDA

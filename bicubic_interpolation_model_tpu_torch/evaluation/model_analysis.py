@@ -29,7 +29,10 @@ def _load_model_any(model_dir, *, device="cuda"):
     - a native checkpoint (``params.msgpack`` + ``meta.json``) whose
       ``meta["model"]`` names a ``models.espcn.MODEL_ZOO`` entry (the
       direct-regression models: espcn_medium, espcn_thick, esrgan_lite,
-      esrgan_plus, srresnet_tpu);
+      esrgan_plus, esrgan_x4, srresnet_tpu);
+    - an ``esrgan_x4`` directory whose ``meta.json`` names a published
+      PyTorch state dict (``meta["state_dict"]``) or a seeded init
+      (``meta["init"]``), via ``models.esrgan.load_rrdbnet``;
     - a native WeightPredictor (``meta["model"]`` "WeightPredictor" or
       absent).
 
@@ -44,6 +47,12 @@ def _load_model_any(model_dir, *, device="cuda"):
     if (d / "model.json").exists():
         from ..models.tfjs_import import load_weight_predictor
         return load_weight_predictor(d, device=dev)
+    meta_path = d / "meta.json"
+    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+    if meta.get("model") == "esrgan_x4" and ("state_dict" in meta
+                                             or "init" in meta):
+        from ..models.esrgan import load_rrdbnet
+        return load_rrdbnet(d, meta, device=dev)
     tree, meta = checkpoint.load(d)
     scale = int(meta.get("scale", 4))
     name = meta.get("model", "WeightPredictor")

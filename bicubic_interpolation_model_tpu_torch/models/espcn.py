@@ -92,6 +92,12 @@ def _esrgan_plus(scale=4, **kw):
     return ESRGANLite(scale=scale, features=96, growth=48, n_blocks=8, **kw)
 
 
+def _esrgan_x4(scale=4, **kw):
+    from .esrgan import RRDBNet
+    # the published RRDB_ESRGAN_x4 / RealESRGAN_x4plus generator
+    return RRDBNet(scale=scale, features=64, growth=32, n_blocks=23, **kw)
+
+
 def _srresnet_tpu(scale=4, **kw):
     from .srresnet_tpu import SRResNetTPU
     return SRResNetTPU(scale=scale, features=128, n_blocks=6, **kw)
@@ -102,5 +108,6 @@ MODEL_ZOO = {
     "espcn_thick": lambda scale=4, **kw: ESPCNResidual(scale=scale, **kw),
     "esrgan_lite": _esrgan_lite,
     "esrgan_plus": _esrgan_plus,
+    "esrgan_x4": _esrgan_x4,
     "srresnet_tpu": _srresnet_tpu,
 }

@@ -1,4 +1,6 @@
-"""ESRGAN-class SR model (RRDB generator, Wang et al. 2018), counterpart of
+"""ESRGAN-class SR models (RRDB generator, Wang et al. 2018).
+
+:class:`ESRGANLite` is the counterpart of
 ``bicubic_interpolation_model_tpu/models/esrgan.py``: Residual-in-Residual
 Dense Blocks with 0.2 residual scaling, pixel-shuffle upsampling by steps
 of 2 (or the whole odd remainder), two convs on the HR grid, and a global
@@ -7,13 +9,26 @@ skip of the nearest-upsampled input. Leaky ReLUs have slope 0.2.
 flax tree: ``Conv_0`` (head), ``RRDB_k/DenseBlock_j/Conv_i``, ``Conv_1``
 (body end), one ``Conv`` per upsampling step, then the HR conv and the
 output conv.
+
+:class:`RRDBNet` is the published ESRGAN generator itself (arXiv:1809.00219;
+xinntao/ESRGAN ``RRDBNet_arch.py``, the ``RRDB_ESRGAN_x4.pth`` model, and
+Real-ESRGAN's ``RealESRGAN_x4plus``, basicsr's ``RRDBNet``): the same dense
+blocks, then 4x by nearest-then-conv on the HR grid twice, ``conv_hr`` and
+``conv_last``, with no global skip. It loads a published PyTorch state dict
+in either key layout, or weights drawn from a seed that ``meta.json``
+states (:func:`load_rrdbnet`).
 """
 
 from __future__ import annotations
 
+import math
+import pathlib
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .layers import Conv, TreeModule, conv, numbered, pixel_shuffle, \
     tree_from_jax, upsample_nearest
 
@@ -115,3 +130,191 @@ def params_from_jax(tree: dict, *, device="cuda") -> dict:
             for r in blocks):
         raise ValueError(f"not an ESRGANLite tree: {sorted(p)}")
     return out
+
+
+class RRDBNet(TreeModule):
+    """The published ESRGAN generator at 4x, on NHWC frames in [0, 1]:
+
+      fea = conv_first(x)
+      fea = fea + conv_body(RRDB_n(... RRDB_1(fea)))
+      fea = lrelu(conv_up1(nearest_2x(fea)))
+      fea = lrelu(conv_up2(nearest_2x(fea)))
+      out = conv_last(lrelu(conv_hr(fea)))
+
+    flax-style tree: ``Conv_0`` (conv_first), ``RRDB_k/DenseBlock_j/Conv_i``
+    (``body.k.rdb<j+1>.conv<i+1>``), ``Conv_1`` (conv_body), ``Conv_2`` and
+    ``Conv_3`` (conv_up1, conv_up2), ``Conv_4`` (conv_hr), ``Conv_5``
+    (conv_last). The spans ``model.trunk`` and ``model.upsample`` hold the
+    two stages' host work while a profiler records."""
+
+    def __init__(self, scale: int = 4, channels: int = 3, features: int = 64,
+                 growth: int = 32, n_blocks: int = 23, *, generator=None):
+        super().__init__()
+        if scale != 4:
+            raise ValueError(f"RRDBNet upsamples 4x (two nearest-then-conv "
+                             f"steps of 2), not {scale}x")
+        self.scale, self.channels, self.features = scale, channels, features
+        self.growth, self.n_blocks = growth, n_blocks
+        g = dict(generator=generator)
+        f = features
+        convs = [Conv(3, 3, channels, f, **g)]
+        convs += [Conv(3, 3, f, f, **g) for _ in range(4)]
+        convs.append(Conv(3, 3, f, channels, **g))
+        for i, c in enumerate(convs):
+            self.add_module(f"Conv_{i}", c)
+        for k in range(n_blocks):
+            self.add_module(f"RRDB_{k}", RRDB(f, growth, **g))
+
+    def apply(self, params, x):
+        p = params.get("params", params)
+        with span("model.trunk"):
+            fea = conv(x, p["Conv_0"])
+            body = fea
+            for k in range(self.n_blocks):
+                body = RRDB.apply(p[f"RRDB_{k}"], body)
+            fea = fea + conv(body, p["Conv_1"])
+        with span("model.upsample"):
+            for i in (2, 3):
+                fea = _leaky(conv(upsample_nearest(fea, 2), p[f"Conv_{i}"]))
+            return conv(_leaky(conv(fea, p["Conv_4"])), p["Conv_5"])
+
+
+#: the published names of RRDBNet's top-level convs, in the order of the
+#: port's ``Conv_0 .. Conv_5``, in basicsr's and in xinntao's layout
+_TOP = {"basicsr": ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                    "conv_hr", "conv_last"),
+        "xinntao": ("conv_first", "trunk_conv", "upconv1", "upconv2",
+                    "HRconv", "conv_last")}
+_BODY = {"basicsr": "body.{k}.rdb{j}.conv{i}",
+         "xinntao": "RRDB_trunk.{k}.RDB{j}.conv{i}"}
+
+
+def published_convs(n_blocks=23, features=64, growth=32, channels=3,
+                    layout="basicsr"):
+    """``[(published name, port path, out, in)]`` of every conv of the
+    published RRDBNet in its parameter order: conv_first, the body's
+    ``k.rdb1.conv1 .. k.rdb3.conv5`` for each block k, conv_body,
+    conv_up1, conv_up2, conv_hr, conv_last."""
+    top = _TOP[layout]
+    f = features
+    out = [(top[0], ("Conv_0",), f, channels)]
+    for k in range(n_blocks):
+        for j in range(3):
+            for i in range(5):
+                name = _BODY[layout].format(k=k, j=j + 1, i=i + 1)
+                path = (f"RRDB_{k}", f"DenseBlock_{j}", f"Conv_{i}")
+                n_out = growth if i < 4 else f
+                out.append((name, path, n_out, f + i * growth))
+    out += [(top[m], (f"Conv_{m}",), f, f) for m in range(1, 5)]
+    out.append((top[5], ("Conv_5",), channels, f))
+    return out
+
+
+def _state_dict_layout(sd: dict) -> str:
+    if any(k.startswith(("RRDB_trunk.", "trunk_conv.")) for k in sd):
+        return "xinntao"
+    return "basicsr"
+
+
+def tree_from_state_dict(sd: dict, n_blocks=23, features=64, growth=32,
+                         channels=3) -> dict:
+    """A published RRDBNet state dict (OIHW ``<conv>.weight`` and
+    ``<conv>.bias``, basicsr's or xinntao's keys, bare or wrapped in
+    ``params_ema`` / ``params``) → the port's ``{"params": ...}`` tree of
+    numpy float32 leaves, kernels in HWIO. Raises ValueError on a missing,
+    extra or misshapen key."""
+    for wrapper in ("params_ema", "params"):
+        if isinstance(sd.get(wrapper), dict):
+            sd = sd[wrapper]
+            break
+    layout = _state_dict_layout(sd)
+    convs = published_convs(n_blocks, features, growth, channels, layout)
+    want = {f"{name}.{leaf}" for name, *_ in convs
+            for leaf in ("weight", "bias")}
+    missing, extra = sorted(want - set(sd)), sorted(set(sd) - want)
+    if missing or extra:
+        raise ValueError(f"not an RRDBNet({channels}, {channels}, "
+                         f"{features}, {n_blocks}, gc={growth}) state dict "
+                         f"({layout} keys): missing {missing[:4]}, extra "
+                         f"{extra[:4]}")
+    tree: dict = {}
+    for name, path, n_out, n_in in convs:
+        w = np.asarray(torch.as_tensor(sd[f"{name}.weight"]).cpu(),
+                       dtype=np.float32)
+        b = np.asarray(torch.as_tensor(sd[f"{name}.bias"]).cpu(),
+                       dtype=np.float32)
+        if w.shape != (n_out, n_in, 3, 3) or b.shape != (n_out,):
+            raise ValueError(f"{name}: weight {w.shape}, bias {b.shape}; "
+                             f"expected {(n_out, n_in, 3, 3)}, {(n_out,)}")
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = {"kernel": np.ascontiguousarray(
+            w.transpose(2, 3, 1, 0)), "bias": b}
+    return {"params": tree}
+
+
+#: what a seeded ``init`` in ``meta.json`` states, word for word, so that a
+#: reader without the port draws the same tensors
+INIT_RNG = "numpy.random.default_rng(seed)"
+INIT_ORDER = ("conv_first, body.<k>.rdb<j>.conv<i> for k = 0 .. n_blocks - 1, "
+              "j = 1 .. 3, i = 1 .. 5, conv_body, conv_up1, conv_up2, "
+              "conv_hr, conv_last")
+INIT_KERNEL = ("float32(rng.standard_normal((out, in, 3, 3)) * (scale * "
+               "sqrt(2 / (9 * in))))")
+_INIT_KEYS = {"rng", "seed", "order", "kernel", "scale", "bias"}
+
+
+def seeded_state_dict(init: dict, n_blocks=23, features=64, growth=32,
+                      channels=3) -> dict:
+    """The state dict (basicsr keys, OIHW float32 numpy) that a
+    ``meta.json`` ``init`` describes: one ``numpy.random.default_rng(seed)``
+    draws every kernel in the published parameter order, each as
+    ``standard_normal((out, in, 3, 3))`` (float64) times
+    ``scale * sqrt(2 / (9 * in))``, cast to float32; ``scale`` is
+    ``init["scale"]["body"]`` in the dense blocks and
+    ``init["scale"][<name>]`` for the top-level convs. Biases are 0,
+    except where ``init["bias"]`` gives a conv's bias."""
+    stated = (init.get("rng"), init.get("order"), init.get("kernel"))
+    if set(init) - _INIT_KEYS or stated != (INIT_RNG, INIT_ORDER,
+                                            INIT_KERNEL):
+        raise ValueError(f"init states another draw than this loader's: "
+                         f"keys {sorted(init)}, rng, order and kernel "
+                         f"{stated}")
+    rng = np.random.default_rng(int(init["seed"]))
+    bias = init.get("bias", {})
+    sd = {}
+    for name, _, n_out, n_in in published_convs(n_blocks, features, growth,
+                                                channels):
+        scale = init["scale"]["body" if name.startswith("body.") else name]
+        std = scale * math.sqrt(2.0 / (9 * n_in))
+        sd[f"{name}.weight"] = (rng.standard_normal((n_out, n_in, 3, 3))
+                                * std).astype(np.float32)
+        sd[f"{name}.bias"] = np.asarray(bias.get(name, np.zeros(n_out)),
+                                        dtype=np.float32)
+    return sd
+
+
+def load_rrdbnet(model_dir, meta: dict, *, device="cuda"):
+    """``(model, params)`` of an RRDBNet checkpoint directory whose
+    ``meta.json`` (``meta``) names a published state dict
+    (``meta["state_dict"]``, a ``.pth`` beside it, read with
+    ``torch.load(weights_only=True)``) or a seeded init (``meta["init"]``,
+    :func:`seeded_state_dict`). ``meta`` may give ``features``,
+    ``growth`` and ``n_blocks`` (default: the published 64, 32, 23)."""
+    from .layers import empty_module
+    dims = {k: int(meta[k]) for k in ("features", "growth", "n_blocks")
+            if k in meta}
+    if "state_dict" in meta:
+        sd = torch.load(pathlib.Path(model_dir) / meta["state_dict"],
+                        map_location="cpu", weights_only=True)
+    elif "init" in meta:
+        sd = seeded_state_dict(meta["init"], **dims)
+    else:
+        raise ValueError(f"{model_dir}: meta.json names neither a "
+                         "state_dict nor an init")
+    tree = tree_from_state_dict(sd, **dims)
+    model = empty_module(lambda: RRDBNet(scale=int(meta.get("scale", 4)),
+                                         **dims), device)
+    model.load_tree(tree)
+    return model, model.tree()

@@ -6,8 +6,9 @@
 - :func:`span`: a named range of the port's own host work, recorded only
   while a profiler records (the serving path's ``serve.upload``,
   ``model.step``, ``resize.dispatch``, ``serve.fetch.start``,
-  ``serve.fetch.wait`` and ``stream.dispatch``, listed in
-  :data:`SPANS`);
+  ``serve.fetch.wait`` and ``stream.dispatch``, and inside ``model.step``
+  the published ESRGAN's ``model.trunk`` and ``model.upsample``, listed
+  in :data:`SPANS`);
 - :func:`span_split`: a trace's host time and the card's idle time by
   the innermost span open on the host;
 - :func:`device_memory_stats`: memory per visible card;
@@ -54,6 +55,8 @@ _NO_SPAN = contextlib.nullcontext()
 #: the port's spans, each with the layer whose host work it holds
 SPANS = {"serve.upload": "serving",
          "model.step": "model step",
+         "model.trunk": "model step",
+         "model.upsample": "model step",
          "resize.dispatch": "resize dispatch, plans",
          "serve.fetch.start": "serving",
          "serve.fetch.wait": "serving",

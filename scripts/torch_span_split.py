@@ -4,25 +4,31 @@ cost while a profiler records.
 
     python3 scripts/torch_span_split.py [--cpu] [--frames N]
 
-Three serving paths on RGBA frames, each on a seeded pool of distinct
-frames: the learned 4x model (``ModelUpscaler("model/wp-1e-3-120")``)
-through ``__call__`` on 339x510 frames (DIV2K x4 LR) and through
-``stream(microbatch="auto")`` on 540x960 frames, and classical bicubic
-4x (``Upscaler``) through ``__call__`` on 1080x1920 frames. Per path,
+Four serving paths, each on a seeded pool of distinct frames: the
+learned 4x model (``ModelUpscaler("model/wp-1e-3-120")``) through
+``__call__`` on 339x510 RGBA frames (DIV2K x4 LR) and through
+``stream(microbatch="auto")`` on 540x960 RGBA frames, classical bicubic
+4x (``Upscaler``) through ``__call__`` on 1080x1920 RGBA frames, and the
+published ESRGAN generator
+(``ModelUpscaler("benchmark/configs/esrgan-rrdbnet-x4")``, whose
+``model.step`` holds ``model.trunk`` and ``model.upsample``) through
+``__call__`` on 339x510 RGB frames. Per path,
 after a warm-up: ``untraced_ms``, host ms a frame with no profiler; then
 under ``torch.profiler`` (host and card), after one traced window that
 is not counted (on the card the first profiled window of each path ran
 10-20% slower than the next), two windows with the spans and two with
 them held off (their gate read as "no profiler"), in the order on, off,
-off, on, each of ``--frames`` frames, each call under
+off, on, each of ``--frames`` frames (default 400, 16 for the ESRGAN
+path, 3 with ``--cpu``), each call under
 ``record_function("__call__")`` or each ``next()`` under
 ``record_function("stream.next")``. Prints per path one JSON line: the host ms a frame of
 each traced window (``traced_ms``, ``traced_no_spans_ms``) and, from the
 first window with spans, ``profiling.span_split`` per frame: each span's
 self ms and the card's idle ms while it was the innermost port span, the
 idle ms under no port span, busy and window ms; with the card's name and
-power limit. With ``--cpu`` it runs each path at 12x16 on the CPU, where
-no time is the card's. Imports nothing of JAX.
+power limit. With ``--cpu`` it runs each path at 12x16 (the path's
+channels) on the CPU, where no time is the card's. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -52,12 +58,16 @@ from bicubic_interpolation_model_tpu_torch.serving import (  # noqa: E402
 from bicubic_interpolation_model_tpu_torch.utils import (  # noqa: E402
     profiling)
 
-MODEL = ROOT / "model" / "wp-1e-3-120"
-#: name: (server, entry, frame, pool)
-PATHS = {"wp_div2k_call": ("learned", "call", (339, 510, 4), 16),
-         "bicubic_1080p_call": ("bicubic", "call", (1080, 1920, 4), 8),
-         "wp_540p_stream": ("learned", "stream", (540, 960, 4), 16)}
-CPU_FRAME = (12, 16, 4)
+#: the checkpoint of each model path
+MODELS = {"learned": ROOT / "model" / "wp-1e-3-120",
+          "esrgan": ROOT / "benchmark" / "configs" / "esrgan-rrdbnet-x4"}
+#: name: (server, entry, frame, pool, frames a window on the card)
+PATHS = {"wp_div2k_call": ("learned", "call", (339, 510, 4), 16, 400),
+         "bicubic_1080p_call": ("bicubic", "call", (1080, 1920, 4), 8, 400),
+         "wp_540p_stream": ("learned", "stream", (540, 960, 4), 16, 400),
+         "esrgan_div2k_call": ("esrgan", "call", (339, 510, 3), 8, 16)}
+CPU_FRAME = (12, 16)
+CPU_FRAMES = 3
 WARM = 32
 
 
@@ -103,12 +113,13 @@ def _traced(server, entry, pool, n, dev, spans_on, tmp):
     return s, events
 
 
-def run_path(name, dev, frames, seed=0) -> dict:
-    kind, entry, frame, n_pool = PATHS[name]
+def run_path(name, dev, frames=None, seed=0) -> dict:
+    kind, entry, frame, n_pool, card_frames = PATHS[name]
     if dev.type != "cuda":
-        frame = CPU_FRAME
-    server = (ModelUpscaler(str(MODEL), scale=4, device=dev)
-              if kind == "learned" else
+        frame = (*CPU_FRAME, frame[2])
+    frames = frames or (card_frames if dev.type == "cuda" else CPU_FRAMES)
+    server = (ModelUpscaler(str(MODELS[kind]), scale=4, device=dev)
+              if kind in MODELS else
               Upscaler(scale=4, method="bicubic", device=dev))
     pool = np.random.default_rng(seed).integers(
         0, 256, (n_pool, *frame), dtype=np.uint8)
@@ -143,14 +154,14 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="run each path at 12x16 on the CPU")
     ap.add_argument("--frames", type=int, default=None,
-                    help="frames a window (default 400, 3 with --cpu)")
+                    help="frames a window (default: the path's own, 3 "
+                         "with --cpu)")
     ap.add_argument("--path", choices=sorted(PATHS), action="append",
                     help="the paths to run (default: all)")
     args = ap.parse_args(argv)
     dev, card = labs.lab_device(args.cpu)
-    frames = args.frames or (3 if args.cpu else 400)
     for name in args.path or PATHS:
-        row = run_path(name, dev, frames)
+        row = run_path(name, dev, args.frames)
         row["card"] = card
         print(json.dumps(row), flush=True)
     return 0
