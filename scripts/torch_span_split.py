@@ -26,7 +26,9 @@ each traced window (``traced_ms``, ``traced_no_spans_ms``) and, from the
 first window with spans, ``profiling.span_split`` per frame: each span's
 self ms and the card's idle ms while it was the innermost port span, the
 idle ms under no port span, busy and window ms; with the card's name and
-power limit. With ``--cpu`` it runs each path at 12x16 (the path's
+power limit; for the ESRGAN path also ``dense_blocks``, the dense blocks a
+frame that ``RRDBNet`` served buffered and concatenated in the untraced
+window. With ``--cpu`` it runs each path at 12x16 (the path's
 channels) on the CPU, where no time is the card's. Imports nothing of
 JAX.
 """
@@ -53,6 +55,8 @@ from torch.profiler import (ProfilerActivity, profile,  # noqa: E402
                             record_function)
 
 from bicubic_interpolation_model_tpu_torch.bench import labs  # noqa: E402
+from bicubic_interpolation_model_tpu_torch.models.esrgan import (  # noqa: E402
+    RRDBNet)
 from bicubic_interpolation_model_tpu_torch.serving import (  # noqa: E402
     ModelUpscaler, Upscaler)
 from bicubic_interpolation_model_tpu_torch.utils import (  # noqa: E402
@@ -125,7 +129,10 @@ def run_path(name, dev, frames=None, seed=0) -> dict:
         0, 256, (n_pool, *frame), dtype=np.uint8)
     pool = [np.ascontiguousarray(f) for f in pool]
     _serve(server, entry, pool, min(frames, WARM))
+    blocks = (RRDBNet.buffered_blocks, RRDBNet.concatenated_blocks)
     untraced = _serve(server, entry, pool, frames)
+    blocks = [(n - n0) / frames for n, n0 in zip(
+        (RRDBNet.buffered_blocks, RRDBNet.concatenated_blocks), blocks)]
     on, off, split = [], [], None
     with tempfile.TemporaryDirectory(prefix="span_split") as tmp:
         _traced(server, entry, pool, frames, dev, False, tmp)
@@ -136,6 +143,8 @@ def run_path(name, dev, frames=None, seed=0) -> dict:
             if events is not None and split is None:
                 split = profiling.span_split(events, "window")
     ms = lambda s: s * 1e3 / frames
+    extra = ({"dense_blocks": dict(zip(("buffered", "concatenated"), blocks))}
+             if kind == "esrgan" else {})
     return {"path": name, "frame": list(frame), "frames": frames,
             "untraced_ms": untraced * 1e3 / frames,
             "traced_ms": on, "traced_no_spans_ms": off,
@@ -146,7 +155,7 @@ def run_path(name, dev, frames=None, seed=0) -> dict:
             "spans": {k: {"count": v["count"] / frames,
                           "self_ms": ms(v["self_s"]),
                           "idle_ms": ms(v["idle_s"])}
-                      for k, v in split["spans"].items()}}
+                      for k, v in split["spans"].items()}, **extra}
 
 
 def main(argv=None) -> int:

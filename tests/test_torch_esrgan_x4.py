@@ -1,13 +1,14 @@
 """The published ESRGAN generator (``models/esrgan.RRDBNet``, MODEL_ZOO
 ``esrgan_x4``) on the port's direct path, against the benchmark's plain
 reference (``benchmark/reference/esrgan_rrdb.py``, plain torch, its own
-NumPy draw of the seeded weights), on the CPU; one card test.
+NumPy draw of the seeded weights), on the CPU; two card tests.
 
 Tolerances:
 
 - float64 before rounding: ≤1e-10 in [0, 1] units. Both sides run the
   same float32 weights in float64 with the same products summed in
-  another order (the port NHWC through ``conv_nhwc``, the reference NCHW);
+  another order (the port channel-major with one buffer per dense block,
+  the reference NCHW with concatenations);
   float64 leaves ~1e-16 relative per sum, and the trunk's ~66x growth and
   the 345 convs keep the difference near 1e-13.
 - float32 bytes against float64 bytes: ≤1 u8, and a share of differing
@@ -21,6 +22,7 @@ Tolerances:
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import pathlib
@@ -175,6 +177,97 @@ def test_model_upscaler_serves_rgb_out(entry, channels, small_dir):
         # an RGBA frame's alpha is dropped: its RGB alone gives the same
         assert np.array_equal(up(np.ascontiguousarray(f[..., :3])),
                               up(f))
+
+
+# -- the channel-major forward with one buffer per dense block -----------
+
+def _blocks():
+    return esrgan.RRDBNet.buffered_blocks, esrgan.RRDBNet.concatenated_blocks
+
+
+def test_loaded_kernels_are_oihw_contiguous_under_their_hwio_shape(
+        small_dir):
+    _, params = _load_model_any(small_dir, device="cpu")
+    leaves = list(_leaves(params["params"]))
+    kernels = [v for k, v in leaves if k.endswith("kernel")]
+    assert len(kernels) == 1 + 2 * 15 + 5
+    for k in kernels:
+        assert k.shape[:2] == (3, 3) and k.permute(3, 2, 0, 1).is_contiguous()
+
+
+def test_buffered_forward_matches_the_concatenating_nhwc_forward(small_dir):
+    """f32, within rounding: each conv sums its products in another order on
+    NCHW than on NHWC, and each scaled residual is one fused ``a + 0.2 b``
+    (at most 1 ulp from a multiply then an add); 1e-5 is ~40 ulps at the
+    largest output, about 2.3 here, and each path's float64 error is about
+    1.2e-6 on this frame. Rounded, the buffered path is ≤1 u8 from the
+    plain reference."""
+    model, params = _load_model_any(small_dir, device="cpu")
+    img = _frame(13, 17)
+    x = torch.as_tensor(img)[None].float() / 255.0
+    with torch.no_grad():
+        buffered = model.apply(params, x)
+    with torch.enable_grad():
+        concatenated = model.apply(params, x).detach()
+    assert buffered.shape == concatenated.shape == (1, 52, 68, 3)
+    assert buffered.is_contiguous()
+    assert float((buffered - concatenated).abs().max()) <= 1e-5
+    got = inference.super_resolve_direct(model, params, img).numpy()
+    want = ref.run(ref.load(small_dir, "cpu"), torch.as_tensor(img)).numpy()
+    assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_counter_reads_every_dense_block_buffered_on_a_no_grad_frame(
+        small_dir):
+    model, params = _load_model_any(small_dir, device="cpu")
+    before = _blocks()
+    inference.super_resolve_direct(model, params, _frame(7, 9))
+    buffered, concatenated = (a - b for a, b in zip(_blocks(), before))
+    assert (buffered, concatenated) == (3 * SMALL["n_blocks"], 0)
+
+
+def test_grad_enabled_falls_back_to_the_concatenating_blocks(small_dir):
+    """The direct trainer's path: ``out=`` writes do not differentiate, so
+    with grad on every dense block concatenates, and gradients reach the
+    conv kernels."""
+    model, params = _load_model_any(small_dir, device="cpu")
+    x = torch.as_tensor(np.stack([_frame(5, 6, seed=s) for s in (1, 2)])
+                        ).float() / 255.0
+    before = _blocks()
+    with torch.enable_grad():
+        model.apply(params, x).square().mean().backward()
+    buffered, concatenated = (a - b for a, b in zip(_blocks(), before))
+    assert (buffered, concatenated) == (0, 2 * 3 * SMALL["n_blocks"])
+    for name, k in _leaves(params["params"]):
+        if name.endswith("kernel"):
+            assert k.grad is not None and float(k.grad.abs().max()) > 0, name
+
+
+def test_batch_of_two_gives_the_frames_of_two_single_calls(small_dir):
+    model, params = _load_model_any(small_dir, device="cpu")
+    frames = np.stack([_frame(7, 9, seed=s) for s in (3, 4)])
+    before = _blocks()
+    batch = inference.super_resolve_batch(model, params, frames).numpy()
+    assert _blocks()[0] - before[0] == 2 * 3 * SMALL["n_blocks"]
+    for f, out in zip(frames, batch):
+        assert np.array_equal(
+            out, inference.super_resolve_direct(model, params, f).numpy())
+
+
+def test_esrgan_lite_output_is_unchanged_byte_for_byte():
+    """ESRGANLite keeps the NHWC dense blocks and their arithmetic: its
+    float32 output on a fixed draw, as the code before the channel-major
+    RRDBNet forward gave it, is the same bytes."""
+    model = esrgan.ESRGANLite(scale=4, features=8, growth=4, n_blocks=2,
+                              generator=torch.Generator().manual_seed(22))
+    x = torch.rand((1, 5, 7, 3), generator=torch.Generator().manual_seed(23))
+    with torch.no_grad():
+        y = model.apply(model.tree(), x)
+    assert y.shape == (1, 20, 28, 3)
+    assert y[0, 0, 0].tolist() == [0.4168108403682709, 0.1898249387741089,
+                                   0.3668771982192993]
+    assert hashlib.sha256(y.contiguous().numpy().tobytes()).hexdigest() == (
+        "eaf548b9ed7ec2f82c3c4f5ec7c9e0cfbc7b86da1d3d655e869f47aba123fd62")
 
 
 # -- weights: the seeded init and the published state dicts --------------
@@ -336,6 +429,7 @@ def test_span_split_script_runs_the_esrgan_path_on_the_cpu(capsys):
     assert {"model.step", "model.trunk", "model.upsample"} <= set(
         row["spans"])
     assert row["spans"]["model.trunk"]["count"] == 1
+    assert row["dense_blocks"] == {"buffered": 69, "concatenated": 0}
 
 
 # -- on the card -------------------------------------------------------------
@@ -358,3 +452,22 @@ def test_served_cell_frame_within_one_of_float64_on_card(card):
     assert got.shape == (1356, 2040, 3)
     assert d.max() <= 1 and float((d > 0).mean()) <= LIMIT
     assert float(((want >= 1) & (want <= 254)).mean()) >= 0.95
+
+
+@pytest.mark.cuda
+def test_traced_cell_call_launches_no_layout_transpose_or_concatenation(
+        card):
+    up = ModelUpscaler(str(CELL_DIR))
+    img = traffic.pool({"frame": [339, 510, 3], "pool": 1}, 2147483701)[0]
+    up(img)
+    before = _blocks()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        up(img)
+        torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_blocks(), before)) == (3 * 23, 0)
+    kernels = {e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("fprop" in k or "conv" in k.lower() for k in kernels), kernels
+    banned = ("nhwcToNchw", "nchwToNhwc", "CatArrayBatchedCopy")
+    assert not [k for k in kernels if any(b in k for b in banned)]
