@@ -259,14 +259,15 @@ def learned_row(d, lr_u8, *, dev) -> dict:
     ``lr_u8``: its launches over one call, that call's output held to the
     plain graph tail (``max_u8_delta``; the learned contract is ≤1 u8)
     and, on the card, its chained and program-output times."""
-    from ..evaluation.model_analysis import _load_model_any
-    from ..models.inference import _tail_operands, _tree, super_resolve
+    from ..models.inference import (build_tail_operands, param_tree,
+                                    super_resolve)
+    from ..models.zoo import load_model
     out_px = lr_u8.shape[0] * lr_u8.shape[1] * SCALE * SCALE
-    model, params = _load_model_any(d, device=dev)
+    model, params = load_model(d, device=dev)
     # the tail's operands, built once per checkpoint as ModelUpscaler
     # builds them
     with torch.no_grad():
-        ops = _tail_operands(_tree(params), SCALE, "train")
+        ops = build_tail_operands(param_tree(params), SCALE, "train")
     fn = lambda x: super_resolve(model, params, x, SCALE, "train",
                                  tail_operands=ops)
     got, launches = configs.counted(lambda: fn(lr_u8))
@@ -300,15 +301,15 @@ def learned(out, lr_u8, *, dev, emit):
 
 
 def neural(out, lr_u8, *, dev, emit):
-    from ..evaluation.model_analysis import _load_model_any
     from ..models.inference import _apply_direct
+    from ..models.zoo import load_model
     out_px = lr_u8.shape[0] * lr_u8.shape[1] * SCALE * SCALE
     lr_f = lr_u8[..., :3].float() / 255.0
     for name, ref_key in NEURAL:
         d = ROOT / "model" / name
         if not d.exists():
             continue
-        model, params = _load_model_any(d, device=dev)
+        model, params = load_model(d, device=dev)
         fn = lambda x: _apply_direct(model, params, x[None],
                                      torch.float32)[0]
         _, launches = configs.counted(lambda: fn(lr_f))

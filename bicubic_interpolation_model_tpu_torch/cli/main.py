@@ -53,12 +53,6 @@ def _host(out) -> np.ndarray:
     return np.asarray(out)
 
 
-def _load_model(model_dir: str, device):
-    """Load either a reference TFJS checkpoint dir or a native one."""
-    from ..evaluation.model_analysis import _load_model_any
-    return _load_model_any(model_dir, device=device)
-
-
 def cmd_make_lr(args):
     """Downsample an HR image to LR (the first half of ``npm run msr``,
     model_super_resolution.js:20-32, default lanczos3 like the reference)."""
@@ -111,7 +105,8 @@ def cmd_sr(args):
         fn = lambda: up(lr, fetch=False)
     elif method == "model":
         from ..models.inference import super_resolve
-        model, params = _load_model(args.model_dir, dev)
+        from ..models.zoo import load_model
+        model, params = load_model(args.model_dir, device=dev)
         # RGBA frames on the card go out as RGBA32 words (kernel B)
         layout = "hwc32" if dev.type == "cuda" and lr.shape[-1] == 4 \
             else "hwc"
@@ -119,7 +114,8 @@ def cmd_sr(args):
                                    exact=args.exact, layout=layout)
     elif method in DIRECT_MODELS:
         from ..models.inference import super_resolve_direct
-        model, params = _load_model(args.model_dir, dev)
+        from ..models.zoo import load_model
+        model, params = load_model(args.model_dir, device=dev)
         fn = lambda: super_resolve_direct(model, params, lr[..., :3])
     else:
         raise SystemExit(f"unknown method {method}")
@@ -209,7 +205,7 @@ def cmd_train(args):
 def cmd_train_sr(args):
     """Train a direct-SR baseline (ESPCN family) from an HR image dir."""
     from ..data.onthefly import load_hr_dir
-    from ..models.espcn import MODEL_ZOO
+    from ..models.zoo import MODEL_ZOO
     from ..models.layers import empty_module
     from ..train import checkpoint
     from ..train.direct_trainer import DirectSRConfig, DirectSRTrainer

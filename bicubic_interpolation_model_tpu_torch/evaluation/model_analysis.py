@@ -1,7 +1,8 @@
-"""Checkpoint loading, model validation and GT-vs-predicted weight analysis
-(counterpart of ``bicubic_interpolation_model_tpu/evaluation/
-model_analysis.py``): ``validate_model`` checks weight sums ≈ 1, extremes
-and negative-weight counts (the reference's ``npm run vm``);
+"""Model validation and GT-vs-predicted weight analysis (counterpart of
+``bicubic_interpolation_model_tpu/evaluation/model_analysis.py``, whose
+checkpoint loader is ``models.zoo.load_model`` here): ``validate_model``
+checks weight sums ≈ 1, extremes and negative-weight counts (the
+reference's ``npm run vm``);
 ``compare_model`` writes global and per-channel MSE between predicted and
 ground-truth weight maps, a %-difference table and histograms (``npm run
 cpm``). NumPy on the host apart from the model's forward, which runs on
@@ -17,69 +18,22 @@ import numpy as np
 import torch
 
 from ..data import binfmt
-from ..runtime.device import resolve_device
-from ..train import checkpoint
-
-
-def _load_model_any(model_dir, *, device="cuda"):
-    """``(model, params)`` of a checkpoint directory, on ``device``:
-
-    - a TFJS WeightPredictor (``model.json`` + weights), via
-      ``models.tfjs_import``;
-    - a native checkpoint (``params.msgpack`` + ``meta.json``) whose
-      ``meta["model"]`` names a ``models.espcn.MODEL_ZOO`` entry (the
-      direct-regression models: espcn_medium, espcn_thick, esrgan_lite,
-      esrgan_plus, esrgan_x4, srresnet_tpu);
-    - an ``esrgan_x4`` directory whose ``meta.json`` names a published
-      PyTorch state dict (``meta["state_dict"]``) or a seeded init
-      (``meta["init"]``), via ``models.esrgan.load_rrdbnet``;
-    - a native WeightPredictor (``meta["model"]`` "WeightPredictor" or
-      absent).
-
-    The MLP predictors (PatchMLP, PixelMLP) load by
-    ``models.mlp_predictor.load_mlp``; any other name raises ValueError."""
-    from ..models.espcn import MODEL_ZOO
-    from ..models.layers import empty_module
-    from ..models.weight_predictor import WeightPredictor
-
-    dev = resolve_device(device)
-    d = pathlib.Path(model_dir)
-    if (d / "model.json").exists():
-        from ..models.tfjs_import import load_weight_predictor
-        return load_weight_predictor(d, device=dev)
-    meta_path = d / "meta.json"
-    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
-    if meta.get("model") == "esrgan_x4" and ("state_dict" in meta
-                                             or "init" in meta):
-        from ..models.esrgan import load_rrdbnet
-        return load_rrdbnet(d, meta, device=dev)
-    tree, meta = checkpoint.load(d)
-    scale = int(meta.get("scale", 4))
-    name = meta.get("model", "WeightPredictor")
-    if name in MODEL_ZOO:
-        make = lambda: MODEL_ZOO[name](scale=scale)
-    elif name == "WeightPredictor":
-        make = lambda: WeightPredictor(scale=scale)
-    else:
-        raise ValueError(
-            f"{d}: model {name!r} is neither a MODEL_ZOO entry "
-            f"({', '.join(MODEL_ZOO)}) nor a WeightPredictor; MLP "
-            "predictors load by models.mlp_predictor.load_mlp")
-    model = empty_module(make, dev)
-    model.load_tree(tree)
-    return model, model.tree()
+from ..models.zoo import load_model
+from ..ops.learned import apply_weights
+from ..runtime.device import conv_precision
+from ..utils import imageio
+from .metrics import compare_images
 
 
 @torch.no_grad()
 def predict_weight_map(model_dir, x, offsets, *, device="cuda") -> np.ndarray:
     """A WeightPredictor checkpoint's [H*S, W*S, 16] weights for one LR
     sample ``x`` [H, W, 4] (0..1) and its offsets [H*S, W*S, 2], as numpy."""
-    from ..models.inference import _conv_precision
-    model, params = _load_model_any(model_dir, device=device)
+    model, _ = load_model(model_dir, device=device)
     dev = next(model.parameters()).device
     img = torch.as_tensor(np.asarray(x, np.float32), device=dev)[None]
     off = torch.as_tensor(np.asarray(offsets, np.float32), device=dev)[None]
-    with _conv_precision(torch.float32):
+    with conv_precision(torch.float32):
         return model(img, off)[0].cpu().numpy()
 
 
@@ -111,9 +65,6 @@ def validate_model(model_dir, data_root, sample_id: str | None = None,
     if hr_dir is not None:
         hr_path = pathlib.Path(hr_dir) / f"{sid}.png"
         if hr_path.exists():
-            from ..ops.learned import apply_weights
-            from ..utils import imageio
-            from .metrics import compare_images
             sr = apply_weights(x * 255.0, torch.from_numpy(pred)).numpy()
             sr = sr.astype(np.uint8)
             hr = imageio.load_rgba(hr_path)[:sr.shape[0], :sr.shape[1]]
@@ -186,7 +137,6 @@ def compare_model(model_dir, data_root, out_dir, *, max_samples: int = 4,
 def _write_histograms(gt, pred, path, bins: int = 64):
     """GT vs predicted weight histograms, one panel per channel, rendered as
     a PNG without any plotting dependency (direct raster)."""
-    from ..utils import imageio
     panel_w, panel_h, gap = 256, 128, 8
     cols, rows = 4, 4
     img = np.full(((panel_h + gap) * rows + gap,

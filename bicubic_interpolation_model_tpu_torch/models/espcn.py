@@ -1,9 +1,9 @@
-"""ESPCN-class SR baselines and the direct-model zoo (counterpart of
-``bicubic_interpolation_model_tpu/models/espcn.py``).
+"""ESPCN-class SR baselines (counterpart of
+``bicubic_interpolation_model_tpu/models/espcn.py``, whose ``MODEL_ZOO``
+is :mod:`.zoo` here).
 
 ESPCN (sub-pixel conv, Shi et al. 2016) in the two sizes that fill the
-reference's medium/thick slots, and :data:`MODEL_ZOO`, which maps a
-checkpoint's ``meta["model"]`` to its module. Every model here is a stack
+reference's medium/thick slots. Every model here is a stack
 of SAME convs on NHWC frames in [0, 1] with a pixel-shuffle output; its
 parameters keep the flax tree of the JAX package (``Conv_0 .. Conv_N``).
 """
@@ -78,36 +78,3 @@ def params_from_jax(tree: dict, *, device="cuda") -> dict:
     if not names or set(names) != set(p):
         raise ValueError(f"not an ESPCN tree: {sorted(p)}")
     return out
-
-
-def _esrgan_lite(scale=4, **kw):
-    from .esrgan import ESRGANLite
-    # dims of the shipping model/esrgan_lite checkpoint
-    return ESRGANLite(scale=scale, features=64, growth=32, n_blocks=6, **kw)
-
-
-def _esrgan_plus(scale=4, **kw):
-    from .esrgan import ESRGANLite
-    # dims of the shipping model/esrgan_plus checkpoint
-    return ESRGANLite(scale=scale, features=96, growth=48, n_blocks=8, **kw)
-
-
-def _esrgan_x4(scale=4, **kw):
-    from .esrgan import RRDBNet
-    # the published RRDB_ESRGAN_x4 / RealESRGAN_x4plus generator
-    return RRDBNet(scale=scale, features=64, growth=32, n_blocks=23, **kw)
-
-
-def _srresnet_tpu(scale=4, **kw):
-    from .srresnet_tpu import SRResNetTPU
-    return SRResNetTPU(scale=scale, features=128, n_blocks=6, **kw)
-
-
-MODEL_ZOO = {
-    "espcn_medium": lambda scale=4, **kw: ESPCN(scale=scale, **kw),
-    "espcn_thick": lambda scale=4, **kw: ESPCNResidual(scale=scale, **kw),
-    "esrgan_lite": _esrgan_lite,
-    "esrgan_plus": _esrgan_plus,
-    "esrgan_x4": _esrgan_x4,
-    "srresnet_tpu": _srresnet_tpu,
-}

@@ -29,8 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import span
-from .layers import Conv, TreeModule, conv, numbered, pixel_shuffle, \
-    tree_from_jax, upsample_nearest
+from .layers import Conv, TreeModule, conv, empty_module, numbered, \
+    pixel_shuffle, tree_from_jax, upsample_nearest
 
 
 def _leaky(x):
@@ -410,7 +410,6 @@ def load_rrdbnet(model_dir, meta: dict, *, device="cuda"):
     ``torch.load(weights_only=True)``) or a seeded init (``meta["init"]``,
     :func:`seeded_state_dict`). ``meta`` may give ``features``,
     ``growth`` and ``n_blocks`` (default: the published 64, 32, 23)."""
-    from .layers import empty_module
     dims = {k: int(meta[k]) for k in ("features", "growth", "n_blocks")
             if k in meta}
     if "state_dict" in meta:

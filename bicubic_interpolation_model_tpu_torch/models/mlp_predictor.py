@@ -103,17 +103,17 @@ def super_resolve_mlp(model, params, lr_u8, scale: int = 4,
     """SR through an MLP weight predictor and the 16-tap apply: uint8
     [H, W, C] → uint8 [H*S, W*S, C], on the device the params lie on."""
     from ..ops.learned import apply_weights
-    from ..ops.resize import _full_f32_matmul
-    from .inference import _as_frames, _device_of, _tree
+    from ..runtime.device import full_f32_matmul
+    from .inference import _as_frames, _device_of, param_tree
 
-    lr8 = _as_frames(lr_u8, _device_of(_tree(params)))
+    lr8 = _as_frames(lr_u8, _device_of(param_tree(params)))
     lr = lr8.float() / 255.0
     h_lr, w_lr = lr.shape[:2]
     h_sr, w_sr = h_lr * scale, w_lr * scale
     feats = extract_pixel_features(lr, h_sr, w_sr, scale, convention)
     if not include_offsets:
         feats = feats[:, :-2]
-    with _full_f32_matmul():
+    with full_f32_matmul():
         w = model.apply(params, feats).reshape(h_sr, w_sr, 16)
     return apply_weights(lr8.float(), w).to(torch.uint8)
 

@@ -28,9 +28,9 @@ import torch
 
 from ..core import plan as planlib
 from ..runtime import build
-from ..runtime.device import as_device_tensor
+from ..runtime.device import full_f32_matmul
 from .phase import _LEFT_EXTENT, _as_bhwc
-from .resize import _full_f32_matmul, round_u8
+from .resize import round_u8
 
 #: LR rows and columns of one output tile (csrc/resize_banded.cu takes any
 #: tile whose output rows are a multiple of 8 and columns of 16, and band
@@ -135,7 +135,7 @@ def resize_banded_reference(img_bhwc: torch.Tensor, b_row: torch.Tensor,
                       (n_j - 1) * step_w + k_w), dtype=dtype,
                      device=img_bhwc.device)
     xp[:, :, left:left + h, left:left + w] = img_bhwc.permute(0, 3, 1, 2)
-    with _full_f32_matmul():
+    with full_f32_matmul():
         win = xp.unfold(2, k_h, step_h)             # [B, C, nI, Wp, KH]
         tmp = torch.einsum("itk,bciwk->bcitw", b_row.to(dtype), win)
         win = tmp.unfold(4, k_w, step_w)            # [B, C, nI, TH, nJ, KW]

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from ..core import plan as planlib
-from ..runtime.device import resolve_device
-from .resize import _full_f32_matmul, round_u8
+from ..runtime.device import full_f32_matmul, resolve_device
+from .resize import round_u8
 
 
 def _out_shape(h, w, factor, out_shape):
@@ -57,7 +57,7 @@ def downsample(img, factor: float, method: str = "cubic",
                                int(h_out), int(w_out), img.device)
     in_dtype = img.dtype
     chw = img.permute(2, 0, 1).to(torch.float32)
-    with _full_f32_matmul():
+    with full_f32_matmul():
         out = torch.matmul(torch.matmul(m_row, chw), m_col_t)
     out = out.permute(1, 2, 0)
     if squeeze:

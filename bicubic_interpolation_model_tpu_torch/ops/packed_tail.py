@@ -6,9 +6,9 @@ conv_in/conv_res features, one pass computes the phase-packed merged map
 phase-decomposed 3x3 ``conv_out``, tanh, the 16-tap apply over each LR 4x4
 neighbourhood, round-half-even and u8 channel packing. The merged map (363
 MB in f32 at a 348x510 frame) never reaches device memory. Its plain PyTorch
-version, :func:`packed_tail_fused_reference`, is the graph chain
-``_packed_merged_map`` + ``_packed_phase_tail`` + round + pack of
-``models/inference``.
+version, :func:`packed_tail_fused_reference`, is the graph chain of this
+module: :func:`merged_map_from_mats` on :func:`flat_mats`, then
+:func:`packed_phase_tail`, round and pack.
 
 :func:`packed_tail` (kernel G, ``csrc/packed_tail_map.cu``): the same tail
 fed a precomputed merged map, with single-frame zero padding
@@ -46,7 +46,7 @@ import torch
 
 from ..runtime import build
 from .interleave import interleave_planar_u32
-from .learned import _apply_round
+from .learned import _apply_round, _edge_pad_chw
 from .planar import pack_rgba32, unpack_planar
 
 _F_IN = 32              # the kernel's conv feature width (WeightPredictor)
@@ -77,6 +77,94 @@ def fused_tail_grid(batch: int, h: int, w: int,
     return tiles.value, blocks.value
 
 
+# -- the plain tail math: the graph chain the kernels are held to ----------
+
+def flat_mats(kup, ubias, offs, att_w, att_b):
+    """The flat merged-map matrices from the tail operands: kflat [F_in,
+    S*S*2F] scattered upsample kernel (offset lanes zero), bias [S*S*2F]
+    upsample bias + per-phase offset constant, amat [S*S*2F, S*S]
+    block-diagonal attention contraction, abias [1]."""
+    blocks, nw = offs.shape
+    n_in = kup.shape[0]
+    kflat = torch.cat([kup.reshape(n_in, blocks, nw),
+                       torch.zeros_like(kup).reshape(n_in, blocks, nw)],
+                      dim=-1).reshape(n_in, blocks * 2 * nw)
+    bias = torch.cat([ubias.expand(blocks, nw), offs], dim=-1).reshape(-1)
+    col = torch.cat([att_w, torch.zeros_like(att_w)])
+    amat = torch.kron(torch.eye(blocks, dtype=col.dtype, device=col.device),
+                      col[:, None])
+    return kflat, bias, amat, att_b
+
+
+def merged_map_from_mats(y, kflat, bias, amat, abias, s, *, rq=None):
+    """Merged packed map [B, h, w, S, S, 2F] from features [B, h, w, F]
+    and the flat matrices: one [M, F] @ [F, S*S*2F] product, attention
+    against the block-diagonal matrix, the gate on up-lanes only.
+
+    ``rq`` (f32 features only) rounds the stages where the fused kernel
+    rounds them in bf16 mode: the pre-gate map before the attention
+    product, the attention before the gate, the gated map."""
+    blocks = s * s
+    twof = kflat.shape[-1] // blocks
+    nw = twof // 2
+    rq = rq or (lambda t: t)
+    m_pre = torch.einsum("byxi,ij->byxj", y, kflat.to(y.dtype)) \
+        + bias.to(y.dtype)
+    att = rq(torch.sigmoid(torch.einsum("nyxj,jk->nyxk", rq(m_pre),
+                                        amat.to(y.dtype))
+                           + abias.to(y.dtype)))
+    lane_is_up = (torch.arange(blocks * twof, device=y.device) % twof) < nw
+    gate = torch.where(lane_is_up, att.repeat_interleave(twof, dim=-1),
+                       torch.ones((), dtype=att.dtype, device=y.device))
+    return rq(m_pre * gate).reshape(y.shape[:3] + (s, s, twof))
+
+
+def _phase_conv_out(mp, kout, pp, q, s, h, w):
+    """conv_out's 3x3 sums (no bias) [B, h, w, 16] at output phase (pp, q),
+    read from the neighbouring phases of the padded map ``mp``."""
+    acc = None
+    for dy in (-1, 0, 1):
+        p2, sy = (pp + dy) % s, (pp + dy) // s
+        for dx in (-1, 0, 1):
+            q2, sx = (q + dx) % s, (q + dx) // s
+            src = mp[:, 1 + sy:1 + sy + h, 1 + sx:1 + sx + w, p2, q2]
+            t = torch.einsum("bhwi,io->bhwo", src, kout[dy + 1, dx + 1])
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def packed_phase_tail(mp, chw, kout, bout, s, c, h, w, *,
+                      opaque_alpha=False):
+    """conv_out (phase-decomposed 3x3, tanh) + the 16-tap apply per phase
+    plane. ``mp`` is the merged packed map with one zero row/col of padding
+    on each side ([B, h+2, w+2, S, S, 2F]); ``chw`` the planar LR pixels,
+    edge-padded (1 leading, 2 trailing) ([B, C, h+3, w+3]). With
+    ``opaque_alpha`` (c = 4) alpha is 255 * sum(w) instead of the 16-tap
+    sum. Returns float [B, h*S, w*S, c]."""
+    kout = kout.to(mp.dtype)
+    n_ch = 3 if opaque_alpha and c == 4 else c
+    cols = []
+    for pp in range(s):
+        planes = []
+        for q in range(s):
+            acc = _phase_conv_out(mp, kout, pp, q, s, h, w)
+            wts = torch.tanh((acc + bout.to(acc.dtype)).float())  # [B,h,w,16]
+            aw = None
+            for i in range(16):
+                ty, tx = i // 4, i % 4
+                term = wts[:, None, :, :, i] * chw[:, :n_ch, ty:ty + h,
+                                                   tx:tx + w]
+                aw = term if aw is None else aw + term
+            if n_ch < c:
+                alpha = wts.sum(dim=-1)[:, None] * 255.0
+                aw = torch.cat([aw, alpha], dim=1)
+            planes.append(aw)                              # [B, C, h, w]
+        cols.append(torch.stack(planes, dim=-1))           # [B, C, h, w, S]
+    grid = torch.stack(cols, dim=3)                        # [B, C, h, S, w, S]
+    bsz = mp.shape[0]
+    return grid.permute(0, 2, 3, 4, 5, 1).reshape(bsz, h * s, w * s, c)
+
+
 def packed_tail_fused_reference(y, lr_f32, kout, bout, kup, ubias, offs,
                                 att_w, att_b, *, scale: int = 4,
                                 opaque_alpha: bool = False) -> torch.Tensor:
@@ -87,10 +175,6 @@ def packed_tail_fused_reference(y, lr_f32, kout, bout, kup, ubias, offs,
     operands. f32 features take it as it is. bf16 features compute in f32
     on bf16-rounded operands and round the merged-map stages where the
     kernel does (as the TPU kernel: bf16 operands, f32 accumulation)."""
-    from ..models.inference import (_flat_mats, _merged_map_from_mats,
-                                    _packed_phase_tail)
-    from .learned import _apply_round, _edge_pad_chw
-
     s = int(scale)
     bsz, h, w, _ = y.shape
     c = lr_f32.shape[-1]
@@ -100,10 +184,10 @@ def packed_tail_fused_reference(y, lr_f32, kout, bout, kup, ubias, offs,
         rq = lambda t: t.to(torch.bfloat16).float()
         y, kout = y.float(), rq(kout.float())
         ops[0], ops[3] = rq(ops[0]), rq(ops[3])
-    m = _merged_map_from_mats(y, *_flat_mats(*ops), s, rq=rq)
+    m = merged_map_from_mats(y, *flat_mats(*ops), s, rq=rq)
     mp = torch.nn.functional.pad(m, (0, 0, 0, 0, 0, 0, 1, 1, 1, 1))
-    out = _packed_phase_tail(mp, _edge_pad_chw(lr_f32), kout, bout, s, c, h,
-                             w, opaque_alpha=opaque_alpha and c == 4)
+    out = packed_phase_tail(mp, _edge_pad_chw(lr_f32), kout, bout, s, c, h,
+                            w, opaque_alpha=opaque_alpha and c == 4)
     words = pack_rgba32(_apply_round(out).to(torch.uint8))   # [B, hS, wS]
     return words.reshape(bsz, h * s, w, s).permute(0, 3, 1, 2).contiguous()
 
@@ -181,11 +265,11 @@ def packed_tail_fused(y, lr_f32, kout, bout, kup, ubias, offs, att_w, att_b,
             kernel; accumulation is f32)
     lr_f32: [h, w, c] (or [B, h, w, c]) LR pixels as float (0..255), c <= 4
     kout:   [3, 3, 32, 16] conv_out kernel;  bout: [16] bias
-    kup, ubias, offs, att_w, att_b: the merged map's operands of
-            ``models.inference._tail_operands`` (upsample kernel [32, 256]
-            and bias [16], per-phase offset constants [16, 16], attention
-            vector [16] and bias [1]); the JAX kernel takes them as the
-            flat matrices of ``_merged_map_mats``
+    kup, ubias, offs, att_w, att_b: the merged map's operands
+            (``models.inference.build_tail_operands``: upsample kernel
+            [32, 256] and bias [16], per-phase offset constants [16, 16],
+            attention vector [16] and bias [1]); the JAX kernel takes
+            them as the flat matrices of :func:`flat_mats`
     layout: "hwc" (uint8 [.., h*S, w*S, c]), "hwc32" (uint32 RGBA32 words
             [.., h*S, w*S]) or "planar" (uint32 [.., S, h*S, w]).
 
@@ -229,21 +313,15 @@ packed_tail_fused.tiles = 0
 packed_tail_fused.blocks = 0
 
 
-def _tail_graph(m, lr_f32, kout, bout, s, halo, opaque_alpha=False):
-    """``_packed_phase_tail`` on a merged map [rows, w, S, S, 2F] and LR
-    pixels [lr_rows, w, c], padded as ``_packed_tail_dispatch`` pads them:
-    ``halo="zero"`` zero-pads the map by one row and column on each side and
-    edge-pads the LR (1 leading, 2 trailing); ``halo="rows"`` pads columns
-    only (the caller's rows are real). Float [h*S, w*S, c]."""
-    from ..models.inference import _packed_phase_tail
-    rows, w = m.shape[:2]
-    c = lr_f32.shape[-1]
+def _padded_map(m, halo):
+    """A merged map [rows, w, S, S, 2F] padded as kernel G reads it:
+    ``halo="zero"`` one zero row and column on each side, ``"rows"``
+    columns only (the caller's rows are real); with the frame's rows and
+    the rows of padding that lead it."""
+    rows = m.shape[0]
     h, lead = (rows - 2, 0) if halo == "rows" else (rows, 1)
-    mp = torch.nn.functional.pad(m, (0, 0, 0, 0, 0, 0, 1, 1, lead, lead))
-    chw = torch.nn.functional.pad(lr_f32.float().movedim(-1, 0)[None],
-                                  (1, 2, lead, 2 * lead), mode="replicate")
-    return _packed_phase_tail(mp[None], chw, kout, bout, s, c, h, w,
-                              opaque_alpha=opaque_alpha and c == 4)[0]
+    pad = (0, 0, 0, 0, 0, 0, 1, 1, lead, lead)
+    return torch.nn.functional.pad(m, pad), h, lead
 
 
 def packed_tail_reference(m, lr_f32, kout, bout, *, scale: int = 4,
@@ -252,18 +330,22 @@ def packed_tail_reference(m, lr_f32, kout, bout, *, scale: int = 4,
     """The plain PyTorch version of kernel G: merged map [h(+2), w, S, S,
     2F] and LR pixels [h(+3), w, c] → planar uint32 [S, h*S, w].
 
-    The graph chain ``_packed_phase_tail`` + round + pack on the map padded
-    as the kernel sees it (:func:`_tail_graph`). A bf16 map computes in f32
-    on the map's values and on ``kout`` rounded to bf16 (the TPU kernel's
-    matmuls: bf16 operands, f32 accumulation)."""
+    The graph chain :func:`packed_phase_tail` + round + pack on the map
+    padded as the kernel reads it (:func:`_padded_map`) and the LR
+    edge-padded (1 leading, 2 trailing; columns only for ``halo="rows"``).
+    A bf16 map computes in f32 on the map's values and on ``kout`` rounded
+    to bf16 (the TPU kernel's matmuls: bf16 operands, f32 accumulation)."""
     s = int(scale)
     if m.dtype == torch.bfloat16:
         m, kout = m.float(), kout.to(torch.bfloat16)
-    out = _tail_graph(m, lr_f32, kout.float(), bout.float(), s, halo,
-                      opaque_alpha)
-    hs, ws = out.shape[:2]
+    mp, h, lead = _padded_map(m, halo)
+    w, c = m.shape[1], lr_f32.shape[-1]
+    chw = torch.nn.functional.pad(lr_f32.float().movedim(-1, 0)[None],
+                                  (1, 2, lead, 2 * lead), mode="replicate")
+    out = packed_phase_tail(mp[None], chw, kout.float(), bout.float(), s, c,
+                            h, w, opaque_alpha=opaque_alpha and c == 4)[0]
     words = pack_rgba32(_apply_round(out).to(torch.uint8))      # [hS, wS]
-    return words.reshape(hs, ws // s, s).permute(2, 0, 1).contiguous()
+    return words.reshape(h * s, w, s).permute(2, 0, 1).contiguous()
 
 
 def packed_tail_probe_reference(m, lr_f32, kout, bout, probe: str, *,
@@ -283,23 +365,12 @@ def packed_tail_probe_reference(m, lr_f32, kout, bout, probe: str, *,
     if m.dtype == torch.bfloat16:
         m, kout = m.float(), kout.to(torch.bfloat16)
     kout, bout = kout.float(), bout.float()
-    rows, w = m.shape[:2]
-    h, lead = (rows - 2, 0) if halo == "rows" else (rows, 1)
-    mp = torch.nn.functional.pad(m.float(),
-                                 (0, 0, 0, 0, 0, 0, 1, 1, lead, lead))
+    mp, h, _ = _padded_map(m.float(), halo)
+    w = m.shape[1]
     out = torch.empty((s, h * s, w), dtype=torch.float32, device=m.device)
     for pp in range(s):
         for q in range(s):
-            acc = None
-            for dy in (-1, 0, 1):
-                p2, sy = (pp + dy) % s, (pp + dy) // s
-                for dx in (-1, 0, 1):
-                    q2, sx = (q + dx) % s, (q + dx) // s
-                    src = mp[1 + sy:1 + sy + h, 1 + sx:1 + sx + w, p2, q2]
-                    t = torch.einsum("hwi,io->hwo", src,
-                                     kout[dy + 1, dx + 1])
-                    acc = t if acc is None else acc + t
-            wts = acc + bout
+            wts = _phase_conv_out(mp[None], kout, pp, q, s, h, w)[0] + bout
             if probe != "matmul":
                 wts = torch.tanh(wts)
             out[q, pp::s] = wts.sum(dim=-1)

@@ -33,7 +33,6 @@ internally [..., C, H, W].
 
 from __future__ import annotations
 
-import contextlib
 from fractions import Fraction
 from typing import Literal
 
@@ -42,7 +41,7 @@ import torch
 
 from ..core import plan as planlib
 from ..core.plan import AxisPlan
-from ..runtime.device import resolve_device
+from ..runtime.device import full_f32_matmul, resolve_device
 from ..utils.profiling import span
 
 #: the classical methods by name, as the JAX package types them
@@ -81,22 +80,10 @@ def _resize_gather(chw, plan_y: AxisPlan, plan_x: AxisPlan):
 # matmul implementation
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """f32 products in full precision whatever the caller's TF32 flag (the
-    JAX package asks for Precision.HIGHEST)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _resize_matmul(chw, plan_y: AxisPlan, plan_x: AxisPlan):
     m_row = _dev(planlib.plan_to_matrix(plan_y), chw)            # [Ho, Hi]
     m_col_t = _dev(planlib.plan_to_matrix(plan_x).T, chw)        # [Wi, Wo]
-    with _full_f32_matmul():
+    with full_f32_matmul():
         t = torch.einsum("oh,...hw->...ow", m_row, chw)
         return torch.einsum("...ow,wx->...ox", t, m_col_t)
 

@@ -25,14 +25,15 @@ import numpy as np
 import torch
 
 from ..core import plan as planlib
-from ..models.inference import (_conv_precision, _packed_merged_map,
-                                _tree)
+from ..models.inference import packed_merged_map, param_tree
 from ..models.layers import conv_nhwc
+from ..models.zoo import is_weight_predictor
 from ..ops import mxu
 from ..ops.adaptive_fused import adaptive_resize_fused
-from ..ops.learned import _apply_round
-from ..ops.packed_tail import _tail_graph, packed_tail, packed_tail_supported
-from ..ops.resize import _full_f32_matmul
+from ..ops.packed_tail import (packed_tail, packed_tail_reference,
+                               packed_tail_supported)
+from ..ops.planar import unpack_planar
+from ..runtime.device import conv_precision, full_f32_matmul
 from .mesh import Mesh
 
 
@@ -122,7 +123,7 @@ def _resize_spatial(x, s, method, a, lanczos_a, devs, hb):
         win = _band_window(x, i * hb - halo, (i + 1) * hb + halo, dev)
         band = torch.from_numpy(bands[i]).to(dev)
         col = torch.from_numpy(m_col_t).to(dev)
-        with _full_f32_matmul():
+        with full_f32_matmul():
             tmp = band @ win.float().reshape(win.shape[0], w * c)
             o = (tmp.reshape(-1, w, c).transpose(1, 2) @ col).transpose(1, 2)
         if x.dtype == torch.uint8:
@@ -274,12 +275,12 @@ def _learned_band(pd, xe, i, n, hb, s, convention, use_kernel):
     """One band of the packed learned forward (``_learned_spatial``'s body):
     ``xe`` is uint8 [hb+6, W, C], the band with 3 halo rows each side."""
     hh = _LEARNED_HALO
-    with _conv_precision(torch.float32), _full_f32_matmul():
+    with conv_precision(torch.float32), full_f32_matmul():
         xf = (xe.float() / 255.0)[None]
         y = _outside_zeroed(torch.relu(conv_nhwc(xf, **pd["conv_in"])),
                             i, n, hh)
         y = y + conv_nhwc(y, **pd["conv_res"])
-        m = _outside_zeroed(_packed_merged_map(pd, y, s, convention),
+        m = _outside_zeroed(packed_merged_map(pd, y, s, convention),
                             i, n, hh)
         # apply taps: LR rows [-1, hb+2), replicated at the true borders
         # (the single-frame apply clamps tap positions to the image)
@@ -292,8 +293,9 @@ def _learned_band(pd, xe, i, n, hb, s, convention, use_kernel):
         kout, bout = pd["conv_out"]["kernel"], pd["conv_out"]["bias"]
         if use_kernel:
             return packed_tail(mb, xa, kout, bout, scale=s, halo="rows")
-        return _apply_round(_tail_graph(mb, xa, kout, bout, s,
-                                        "rows")).to(torch.uint8)
+        return unpack_planar(packed_tail_reference(
+            mb, xa, kout, bout, scale=s, halo="rows"), hb, mb.shape[1], s,
+            xa.shape[-1])
 
 
 def learned_resize_spatial_sharded(model, params, img, scale=4, *,
@@ -314,7 +316,7 @@ def learned_resize_spatial_sharded(model, params, img, scale=4, *,
     distinct device of the axis. Matches the single-frame packed path to
     ≤1 u8 LSB with the same tail, ≤2 across tails. Returns uint8
     [H*S, W*S, C] on the axis's first device."""
-    if type(model).__name__ != "WeightPredictor":
+    if not is_weight_predictor(model, params):
         raise ValueError("spatial sharding implemented for WeightPredictor "
                          "checkpoints")
     if tail not in ("auto", "kernel", "graph"):
@@ -324,7 +326,7 @@ def learned_resize_spatial_sharded(model, params, img, scale=4, *,
     n = len(devs)
     h, w, c = x.shape
     s = int(scale)
-    p = _tree(params)
+    p = param_tree(params)
     twof = 2 * p["upsample"]["kernel"].shape[2]
     supported = packed_tail_supported(s, twof, c)
     if tail == "kernel" and not supported:

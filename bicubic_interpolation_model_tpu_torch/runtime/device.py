@@ -1,6 +1,9 @@
-"""Where entry points run: the card unless the caller asks for the CPU."""
+"""Where entry points run (the card unless the caller asks for the CPU),
+and at what float32 precision: TF32 off in cuDNN and cuBLAS."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,3 +28,23 @@ def as_device_tensor(img, device=None) -> torch.Tensor:
         return img
     return torch.as_tensor(img).to(
         resolve_device("cuda" if device is None else device))
+
+
+def conv_precision(dtype):
+    """Full-f32 cuDNN convs at float32 (cuDNN defaults to TF32) for this
+    region only; the global flag is left alone."""
+    if dtype == torch.float32:
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+    return contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """f32 products in full precision whatever the caller's TF32 flag (the
+    JAX package asks for Precision.HIGHEST)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -21,6 +21,12 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from .models.inference import (build_tail_operands, param_tree,
+                               super_resolve, super_resolve_batch,
+                               super_resolve_direct)
+from .models.zoo import is_weight_predictor, load_model
+from .ops.adaptive import adaptive_resize, adaptive_resize_batch
+from .ops.resize import resize, resize_batch
 from .runtime.device import resolve_device
 from .utils.profiling import span
 
@@ -206,21 +212,17 @@ class Upscaler:
         the HWC frame (pass it to :func:`_fetch` or view the bytes
         yourself); otherwise uint8 [H*S, W*S(, C)]."""
         if self.method == "adaptive":
-            from .ops.adaptive import adaptive_resize
             out = adaptive_resize(img_u8, self.scale, layout="auto",
                                   **self._kw())
         else:
-            from .ops.resize import resize
             out = resize(img_u8, self.scale, self.method, **self._kw())
         return _fetch(out) if fetch else out
 
     def batch(self, imgs_u8, fetch: bool = True):
         """[B, H, W(, C)] same-size images in one kernel launch."""
         if self.method == "adaptive":
-            from .ops.adaptive import adaptive_resize_batch
             out = adaptive_resize_batch(imgs_u8, self.scale, **self._kw())
         else:
-            from .ops.resize import resize_batch
             out = resize_batch(imgs_u8, self.scale, self.method,
                                **self._kw())
         return _fetch(out) if fetch else out
@@ -262,9 +264,9 @@ class Upscaler:
 @dataclasses.dataclass
 class ModelUpscaler:
     """Learned SR behind the serving interface, on a checkpoint directory
-    that ``evaluation.model_analysis._load_model_any`` loads: a native or
+    that ``models.zoo.load_model`` loads: a native or
     TFJS WeightPredictor, or a direct-regression model of
-    ``models.espcn.MODEL_ZOO`` (ESPCN, ESRGAN, SRResNetTPU), which takes
+    ``models.zoo.MODEL_ZOO`` (ESPCN, ESRGAN, SRResNetTPU), which takes
     the frame's RGB channels and returns RGB. ``device`` defaults to the
     card; without one it raises unless given ``device="cpu"``."""
 
@@ -282,20 +284,18 @@ class ModelUpscaler:
     device: str = "cuda"
 
     def __post_init__(self):
-        from .evaluation.model_analysis import _load_model_any
         self._device = resolve_device(self.device)
-        self.model, self.params = _load_model_any(self.model_dir,
-                                                  device=self._device)
+        self.model, self.params = load_model(self.model_dir,
+                                             device=self._device)
         # direct pixel-regression checkpoints take super_resolve_direct;
         # weight predictors the phase-packed super_resolve
-        self._direct = type(self.model).__name__ != "WeightPredictor"
+        self._direct = not is_weight_predictor(self.model, self.params)
         self._tail_operands = None
         if not self._direct:
             # the fused tail's operands, built once per checkpoint
-            from .models.inference import _tail_operands, _tree
             with torch.no_grad():
-                self._tail_operands = _tail_operands(
-                    _tree(self.params), self.scale, self.convention)
+                self._tail_operands = build_tail_operands(
+                    param_tree(self.params), self.scale, self.convention)
 
     def _kw(self):
         return dict(scale=self.scale, convention=self.convention,
@@ -315,10 +315,8 @@ class ModelUpscaler:
         with span("serve.upload"):
             lr = torch.as_tensor(lr_u8).to(self._device)
         if self._direct:
-            from .models.inference import super_resolve_direct
             out = super_resolve_direct(self.model, self.params, lr[..., :3])
             return _fetch(out) if fetch else out
-        from .models.inference import super_resolve
         # RGBA frames on the card go out as RGBA32 words through the
         # interleave kernel; the channel count comes from the shape
         use32 = self._device.type == "cuda" and lr.shape[-1] == 4
@@ -330,7 +328,6 @@ class ModelUpscaler:
         """[B, H, W, C] same-size frames in one launch (the fused tail
         kernel's leading grid dimension, or the convs' batch); uint8
         [B, H*S, W*S, C], C = 3 for a direct model."""
-        from .models.inference import super_resolve_batch
         with span("serve.upload"):
             lrs = torch.as_tensor(lrs_u8).to(self._device)
         if self._direct:

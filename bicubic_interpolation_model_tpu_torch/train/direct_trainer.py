@@ -1,5 +1,5 @@
 """Trainer for the direct pixel-regression SR models of
-``models.espcn.MODEL_ZOO`` (counterpart of
+``models.zoo.MODEL_ZOO`` (counterpart of
 ``bicubic_interpolation_model_tpu/train/direct_trainer.py``): random LR/HR
 patch pairs, Adam with exponential decay, MSE in [0, 1] pixel space."""
 

@@ -34,12 +34,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.inference import _conv_precision, _device_of
+from ..models.inference import _device_of
 from ..models.layers import init_tree_, tree_from_jax, tree_map
 from ..ops.adaptive import adaptive_gt_factors
 from ..ops.learned import gt_weight_map, offset_map
-from ..ops.resize import _full_f32_matmul
-from ..runtime.device import resolve_device
+from ..runtime.device import conv_precision, full_f32_matmul, resolve_device
 
 
 @dataclasses.dataclass
@@ -67,10 +66,11 @@ class TrainConfig:
 
 @contextlib.contextmanager
 def full_f32():
-    """f32 convs and matmuls at full precision (cuDNN and cuBLAS TF32 off)
-    for the region, which must hold the forward, the backward and the
-    update; the flags are restored on exit."""
-    with _conv_precision(torch.float32), _full_f32_matmul():
+    """f32 convs and matmuls at full precision (cuDNN and cuBLAS TF32 off:
+    ``runtime.device.conv_precision`` and ``full_f32_matmul``) for the
+    region, which must hold the forward, the backward and the update; the
+    flags are restored on exit."""
+    with conv_precision(torch.float32), full_f32_matmul():
         yield
 
 

@@ -175,14 +175,14 @@ def wp_tail_params(rng, dev):
 
 def tail_case(h, w, c, dev, seed, batch=1):
     from bicubic_interpolation_model_tpu_torch.models.inference import (
-        _tail_operands)
+        build_tail_operands)
     rng = np.random.default_rng(seed)
     p = wp_tail_params(rng, dev)
     y = torch.as_tensor(rng.normal(0, 0.5, (batch, h, w, 32)).astype(
         np.float32), device=dev)
     lr = torch.as_tensor(rng.integers(0, 256, (batch, h, w, c)).astype(
         np.float32), device=dev)
-    ops = _tail_operands(p, 4, "train")
+    ops = build_tail_operands(p, 4, "train")
     return (y, lr, p["conv_out"]["kernel"], p["conv_out"]["bias"], *ops)
 
 
@@ -951,7 +951,7 @@ def train_path(dev, name_power, zero_counts, read_counts):
     Each phase prints one line and raises when a check fails."""
     import shutil
     from bicubic_interpolation_model_tpu_torch.data import div2k, validate
-    from bicubic_interpolation_model_tpu_torch.models.espcn import MODEL_ZOO
+    from bicubic_interpolation_model_tpu_torch.models.zoo import MODEL_ZOO
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         super_resolve)
     from bicubic_interpolation_model_tpu_torch.models.layers import (

@@ -42,14 +42,16 @@ import torch  # noqa: E402
 
 from bicubic_interpolation_model_tpu_torch.bench import (  # noqa: E402
     configs, labs, suite)
-from bicubic_interpolation_model_tpu_torch.evaluation import (  # noqa: E402
-    model_analysis)
 from bicubic_interpolation_model_tpu_torch.models import (  # noqa: E402
     inference as inf)
 from bicubic_interpolation_model_tpu_torch.models.layers import (  # noqa: E402
     conv_nhwc)
+from bicubic_interpolation_model_tpu_torch.models.zoo import (  # noqa: E402
+    load_model)
 from bicubic_interpolation_model_tpu_torch.ops import (  # noqa: E402
     packed_tail as pt)
+from bicubic_interpolation_model_tpu_torch.runtime.device import (  # noqa: E402
+    conv_precision)
 
 CKPT = ROOT / "model" / "wp-1e-3-120"
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -62,10 +64,10 @@ def upstream(p, lr_u8, dtype):
     lr_f32 = lr_u8[None].float()
     pc, _ = inf._cast_compute(p, lr_f32, dtype)
     xf = (lr_f32 / 255.0).to(dtype)
-    with inf._conv_precision(dtype):
+    with conv_precision(dtype):
         y = torch.relu(conv_nhwc(xf, **pc["conv_in"]))
         y = y + conv_nhwc(y, **pc["conv_res"])
-    return inf._packed_merged_map(pc, y, 4, "train")
+    return inf.packed_merged_map(pc, y, 4, "train")
 
 
 def main(argv=None) -> int:
@@ -76,8 +78,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dev, card = labs.lab_device(args.cpu)
     h, w = (24, 40) if args.cpu else FRAME
-    model, params = model_analysis._load_model_any(CKPT, device=dev)
-    p = inf._tree(params)
+    model, params = load_model(CKPT, device=dev)
+    p = inf.param_tree(params)
     rng = np.random.default_rng(0)
     lr = torch.from_numpy(labs.u8_frames(rng, h, w, 4)).to(dev)
     timed = not args.cpu

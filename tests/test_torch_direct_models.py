@@ -30,8 +30,7 @@ from bicubic_interpolation_model_tpu.models.inference import (
     super_resolve_direct as jax_super_resolve_direct)
 from bicubic_interpolation_model_tpu.models.layers import (
     pixel_shuffle as jax_pixel_shuffle)
-from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis import (
-    _load_model_any)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.models import espcn, esrgan
 from bicubic_interpolation_model_tpu_torch.models import srresnet_tpu
 from bicubic_interpolation_model_tpu_torch.models.inference import (
@@ -79,7 +78,7 @@ def _jax_model(jax_zoo, name):
 @pytest.mark.parametrize("name", ZOO)
 def test_checkpoint_super_resolve_direct_matches_jax(jax_zoo, name):
     jm, jp = _jax_model(jax_zoo, name)
-    model, params = _load_model_any(MODEL_DIR / name, device="cpu")
+    model, params = load_model(MODEL_DIR / name, device="cpu")
     assert type(model).__name__ == type(jm).__name__
     img = _frames(1, seed=1)[0]
     ref = np.asarray(jax_super_resolve_direct(jm, jp, img))
@@ -119,7 +118,7 @@ def test_model_upscaler_serves_checkpoint_like_jax(jax_zoo, name):
 
 def test_super_resolve_batch_matches_frames_and_jax(jax_zoo):
     jm, jp = _jax_model(jax_zoo, "espcn_thick")
-    model, params = _load_model_any(MODEL_DIR / "espcn_thick", device="cpu")
+    model, params = load_model(MODEL_DIR / "espcn_thick", device="cpu")
     frames = _frames(3, seed=3)
     got = super_resolve_batch(model, params, frames)
     assert got.shape == (3, 4 * H, 4 * W, 3) and got.dtype == torch.uint8
@@ -187,15 +186,15 @@ def test_jax_loader_restores_the_same_params(jax_zoo):
 
 
 def test_params_from_jax_refuses_another_family():
-    _, p = _load_model_any(MODEL_DIR / "esrgan_lite", device="cpu")
+    _, p = load_model(MODEL_DIR / "esrgan_lite", device="cpu")
     with pytest.raises(ValueError, match="not an ESPCN tree"):
         espcn.params_from_jax(p, device="cpu")
-    _, q = _load_model_any(MODEL_DIR / "srresnet_tpu", device="cpu")
+    _, q = load_model(MODEL_DIR / "srresnet_tpu", device="cpu")
     with pytest.raises(ValueError, match="not an ESRGANLite tree"):
         esrgan.params_from_jax(q, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         espcn.ESPCN(features=16).load_tree(
-            espcn.params_from_jax(_load_model_any(
+            espcn.params_from_jax(load_model(
                 MODEL_DIR / "espcn_medium", device="cpu")[1],
                 device="cpu"))
 
@@ -285,6 +284,6 @@ def test_bf16_envelope_on_untrained_weights():
 
 
 def test_direct_models_take_no_rgba32_layout():
-    model, params = _load_model_any(MODEL_DIR / "espcn_medium", device="cpu")
+    model, params = load_model(MODEL_DIR / "espcn_medium", device="cpu")
     with pytest.raises(ValueError, match="RGB"):
         super_resolve(model, params, _frames(1, c=4)[0], layout="hwc32")

@@ -38,19 +38,16 @@ sys.path.insert(0, str(ROOT))
 
 from benchmark import traffic  # noqa: E402
 from benchmark.reference import esrgan_rrdb as ref  # noqa: E402
-from bicubic_interpolation_model_tpu_torch.evaluation import (  # noqa: E402
-    model_analysis)
 from bicubic_interpolation_model_tpu_torch.models import esrgan  # noqa: E402
-from bicubic_interpolation_model_tpu_torch.models.espcn import (  # noqa: E402
-    MODEL_ZOO)
 from bicubic_interpolation_model_tpu_torch.models import (  # noqa: E402
     inference)
 from bicubic_interpolation_model_tpu_torch.models.layers import (  # noqa: E402
     empty_module, tree_map)
+from bicubic_interpolation_model_tpu_torch.models.zoo import (  # noqa: E402
+    MODEL_ZOO, load_model)
 from bicubic_interpolation_model_tpu_torch.serving import (  # noqa: E402
     ModelUpscaler)
 
-_load_model_any = model_analysis._load_model_any
 CELL_DIR = ROOT / "benchmark" / "configs" / "esrgan-rrdbnet-x4"
 PUBLISHED = {"n_blocks": 23, "features": 64, "growth": 32}
 SMALL = {"n_blocks": 2, "features": 16, "growth": 8}
@@ -89,7 +86,7 @@ def published_dir(tmp_path_factory):
 def cell():
     """The benchmark cell's checkpoint: the port's model and the
     reference's state, loaded once."""
-    model, params = _load_model_any(CELL_DIR, device="cpu")
+    model, params = load_model(CELL_DIR, device="cpu")
     return model, params, ref.load(CELL_DIR, "cpu")
 
 
@@ -109,7 +106,7 @@ def test_float64_port_matches_reference_before_rounding(which, h, w,
                                                         small_dir,
                                                         published_dir):
     d = small_dir if which == "small" else published_dir
-    model, params = _load_model_any(d, device="cpu")
+    model, params = load_model(d, device="cpu")
     img = _frame(h, w)
     got = _port_float64(model, params, img)
     want = ref.upscale_float(ref.load(d, "cpu"), torch.as_tensor(img))
@@ -187,7 +184,7 @@ def _blocks():
 
 def test_loaded_kernels_are_oihw_contiguous_under_their_hwio_shape(
         small_dir):
-    _, params = _load_model_any(small_dir, device="cpu")
+    _, params = load_model(small_dir, device="cpu")
     leaves = list(_leaves(params["params"]))
     kernels = [v for k, v in leaves if k.endswith("kernel")]
     assert len(kernels) == 1 + 2 * 15 + 5
@@ -202,7 +199,7 @@ def test_buffered_forward_matches_the_concatenating_nhwc_forward(small_dir):
     largest output, about 2.3 here, and each path's float64 error is about
     1.2e-6 on this frame. Rounded, the buffered path is ≤1 u8 from the
     plain reference."""
-    model, params = _load_model_any(small_dir, device="cpu")
+    model, params = load_model(small_dir, device="cpu")
     img = _frame(13, 17)
     x = torch.as_tensor(img)[None].float() / 255.0
     with torch.no_grad():
@@ -219,7 +216,7 @@ def test_buffered_forward_matches_the_concatenating_nhwc_forward(small_dir):
 
 def test_counter_reads_every_dense_block_buffered_on_a_no_grad_frame(
         small_dir):
-    model, params = _load_model_any(small_dir, device="cpu")
+    model, params = load_model(small_dir, device="cpu")
     before = _blocks()
     inference.super_resolve_direct(model, params, _frame(7, 9))
     buffered, concatenated = (a - b for a, b in zip(_blocks(), before))
@@ -230,7 +227,7 @@ def test_grad_enabled_falls_back_to_the_concatenating_blocks(small_dir):
     """The direct trainer's path: ``out=`` writes do not differentiate, so
     with grad on every dense block concatenates, and gradients reach the
     conv kernels."""
-    model, params = _load_model_any(small_dir, device="cpu")
+    model, params = load_model(small_dir, device="cpu")
     x = torch.as_tensor(np.stack([_frame(5, 6, seed=s) for s in (1, 2)])
                         ).float() / 255.0
     before = _blocks()
@@ -244,7 +241,7 @@ def test_grad_enabled_falls_back_to_the_concatenating_blocks(small_dir):
 
 
 def test_batch_of_two_gives_the_frames_of_two_single_calls(small_dir):
-    model, params = _load_model_any(small_dir, device="cpu")
+    model, params = load_model(small_dir, device="cpu")
     frames = np.stack([_frame(7, 9, seed=s) for s in (3, 4)])
     before = _blocks()
     batch = inference.super_resolve_batch(model, params, frames).numpy()
@@ -347,9 +344,9 @@ def test_published_state_dicts_load_to_the_seeded_tree(layout, wrapper,
         assert "RRDB_trunk.1.RDB3.conv5.weight" in sd and "HRconv.bias" in sd
     d = _ckpt(tmp_path / "ckpt", SMALL, state_dict="g.pth")
     torch.save({wrapper: sd} if wrapper else sd, d / "g.pth")
-    _, got = _load_model_any(d, device="cpu")
+    _, got = load_model(d, device="cpu")
     seeded = _ckpt(tmp_path / "seeded", SMALL, init=_init(3))
-    _, want = _load_model_any(seeded, device="cpu")
+    _, want = load_model(seeded, device="cpu")
     assert _trees_equal(got, want)
 
 
@@ -370,7 +367,7 @@ def test_bad_state_dict_raises(kind, match, tmp_path):
     torch.save(_bad(kind, _state_dict()), tmp_path / "g.pth")
     d = _ckpt(tmp_path, SMALL, state_dict="g.pth")
     with pytest.raises(ValueError, match=match):
-        _load_model_any(d, device="cpu")
+        load_model(d, device="cpu")
 
 
 def test_meta_without_weights_raises(tmp_path):
@@ -389,7 +386,7 @@ def test_trained_esrgan_x4_checkpoint_loads_by_msgpack(cell, tmp_path):
     _, params, _ = cell
     checkpoint.save(tmp_path, tree_map(lambda t: t.detach().numpy(), params),
                     meta={"model": "esrgan_x4", "scale": 4})
-    model, got = _load_model_any(tmp_path, device="cpu")
+    model, got = load_model(tmp_path, device="cpu")
     assert isinstance(model, esrgan.RRDBNet)
     assert _trees_equal(got, params)
 
@@ -417,11 +414,16 @@ def test_trunk_and_upsample_spans_nest_in_model_step(small_dir, tmp_path):
     assert s0 <= t0 <= t1 <= u0 <= u1 <= s1
 
 
-def test_span_split_script_runs_the_esrgan_path_on_the_cpu(capsys):
+def test_span_split_script_runs_the_esrgan_path_on_the_cpu(small_dir,
+                                                           capsys):
+    """The script's plumbing on the ESRGAN path, served from the small
+    seeded RRDBNet (the published widths are the card's; on the CPU they
+    only cost time)."""
     path = ROOT / "scripts" / "torch_span_split.py"
     spec = importlib.util.spec_from_file_location("torch_span_split", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    module.MODELS["esrgan"] = small_dir
     assert module.main(["--cpu", "--path", "esrgan_div2k_call",
                         "--frames", "1"]) == 0
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -429,7 +431,8 @@ def test_span_split_script_runs_the_esrgan_path_on_the_cpu(capsys):
     assert {"model.step", "model.trunk", "model.upsample"} <= set(
         row["spans"])
     assert row["spans"]["model.trunk"]["count"] == 1
-    assert row["dense_blocks"] == {"buffered": 69, "concatenated": 0}
+    assert row["dense_blocks"] == {"buffered": 3 * SMALL["n_blocks"],
+                                   "concatenated": 0}
 
 
 # -- on the card -------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's evaluation and I/O layer against the JAX package on the CPU:
 ``evaluation/metrics`` (bit-equal), ``evaluation/compare`` (byte-equal
 ``metrics_report.csv``), ``evaluation/model_analysis`` (``validate_model``,
-``compare_model``: stats.json within 1e-5; ``_load_model_any`` on all
+``compare_model``: stats.json within 1e-5; ``models.zoo.load_model`` on all
 nine committed checkpoints), ``models/tfjs_import`` on a TFJS directory
 written here, ``data/binfmt``, ``utils/config`` and ``runtime/native`` (the
 port's own build of the root ``csrc/`` sources)."""
@@ -32,6 +32,7 @@ from bicubic_interpolation_model_tpu_torch.evaluation import model_analysis
 from bicubic_interpolation_model_tpu_torch.models import tfjs_import
 from bicubic_interpolation_model_tpu_torch.models.mlp_predictor import (
     load_mlp)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.ops.learned import (
     gt_weight_map, offset_map)
 from bicubic_interpolation_model_tpu_torch.runtime import native
@@ -226,7 +227,7 @@ def test_tfjs_import_matches_jax(tmp_path):
         for k, v in leaves.items():
             assert np.array_equal(params["params"][layer][k].detach().numpy(),
                                   np.asarray(v))
-    loaded, _ = model_analysis._load_model_any(d, device="cpu")
+    loaded, _ = load_model(d, device="cpu")
     assert type(loaded).__name__ == "WeightPredictor"
     up = ModelUpscaler(str(d), device="cpu")
     frame = _image(np.random.default_rng(1), 6, 5)
@@ -249,10 +250,9 @@ def test_every_committed_checkpoint_loads(name, kind):
     if "MLP" in kind:
         model, params, _ = load_mlp(MODEL_DIR / name, device="cpu")
         with pytest.raises(ValueError, match="load_mlp"):
-            model_analysis._load_model_any(MODEL_DIR / name, device="cpu")
+            load_model(MODEL_DIR / name, device="cpu")
     else:
-        model, params = model_analysis._load_model_any(MODEL_DIR / name,
-                                                       device="cpu")
+        model, params = load_model(MODEL_DIR / name, device="cpu")
     assert type(model).__name__ == kind
     assert meta["model"] in (kind, name)
     leaves = jax.tree.leaves(params)

@@ -19,8 +19,7 @@ from bicubic_interpolation_model_tpu.evaluation.model_analysis import (
     _load_model_any as jax_load_model_any)
 from bicubic_interpolation_model_tpu.models import inference as J
 from bicubic_interpolation_model_tpu_torch.entry import entry
-from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis import (
-    _load_model_any)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.models import inference as T
 from bicubic_interpolation_model_tpu_torch.models.weight_predictor import (
     init_params)
@@ -35,7 +34,7 @@ def jax_wp():
 
 @pytest.fixture(scope="module")
 def port_wp():
-    return _load_model_any(CKPT, device="cpu")
+    return load_model(CKPT, device="cpu")
 
 
 def _frame(seed, h=40, w=56, c=4):
@@ -173,7 +172,7 @@ def test_packed_merged_map_matches_einsum_oracle(jax_wp, port_wp):
     p = port_wp[1]["params"]
     yt = torch.as_tensor(y)
     with torch.no_grad():
-        m = T._packed_merged_map(p, yt, 4, "train")
+        m = T.packed_merged_map(p, yt, 4, "train")
         att = T._packed_upsample_att(p, yt)
         off = T._packed_off_feat(p, 4, "train")
     jatt = np.asarray(J._packed_upsample_att(jax_wp[1]["params"],

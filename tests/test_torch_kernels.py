@@ -48,7 +48,7 @@ import torch
 
 from bicubic_interpolation_model_tpu_torch.bench.labs import all_class_frames
 from bicubic_interpolation_model_tpu_torch.models.inference import (
-    _tail_operands)
+    build_tail_operands)
 from bicubic_interpolation_model_tpu_torch.ops import adaptive_fused as adf
 from bicubic_interpolation_model_tpu_torch.ops import banded
 from bicubic_interpolation_model_tpu_torch.ops import interleave as ilv
@@ -82,7 +82,7 @@ def _tail_args(h, w, c, seed, device="cpu", opaque=False):
     if opaque:
         lr[..., 3] = 255.0
     return (y, torch.as_tensor(lr, device=device), p["conv_out"]["kernel"],
-            p["conv_out"]["bias"], *_tail_operands(p, 4, "train"))
+            p["conv_out"]["bias"], *build_tail_operands(p, 4, "train"))
 
 
 def _map_args(h, w, c, halo, seed, device="cpu", opaque=False):
@@ -968,13 +968,12 @@ def _card_mesh(cuda, n, axis="spatial"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 def test_sharded_learned_on_card(cuda, n):
-    from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis \
-        import _load_model_any
+    from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
     from bicubic_interpolation_model_tpu_torch.models.inference import (
         super_resolve)
     from bicubic_interpolation_model_tpu_torch.parallel.spatial import (
         learned_resize_spatial_sharded)
-    model, params = _load_model_any(ROOT / "model" / "wp-1e-3-120")
+    model, params = load_model(ROOT / "model" / "wp-1e-3-120")
     img = _frames(n, 1, 24, 40, 4)[0].numpy()
     img[..., 3] = 255
     mesh = _card_mesh(cuda, n)

@@ -23,8 +23,7 @@ from bicubic_interpolation_model_tpu.models.weight_predictor import (
     init_params as jax_init_params)
 from bicubic_interpolation_model_tpu.ops.learned import (
     offset_map as jax_offset_map)
-from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis import (
-    _load_model_any)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.models.layers import (
     PixelShuffleUpsample, pixel_shuffle_upsample)
 from bicubic_interpolation_model_tpu_torch.models.weight_predictor import (
@@ -36,7 +35,7 @@ MODEL_DIR = pathlib.Path(__file__).resolve().parents[1] / "model"
 @pytest.mark.parametrize("name", ["wp-1e-3-120", "wp-adaptive-1e-3-120"])
 def test_weight_predictor_forward_matches_flax(name):
     jmodel, jparams = jax_load_model_any(str(MODEL_DIR / name))
-    model, params = _load_model_any(MODEL_DIR / name, device="cpu")
+    model, params = load_model(MODEL_DIR / name, device="cpu")
     rng = np.random.default_rng(1)
     img = rng.uniform(0, 1, (2, 12, 10, 4)).astype(np.float32)
     off = np.asarray(jax_offset_map(48, 40, 4.0, "train"))
@@ -116,13 +115,13 @@ def test_load_model_any_rejects_unported_models(tmp_path):
     models.mlp_predictor.load_mlp) and unknown ``meta["model"]`` names."""
     for name in ("patch-mlp", "pixel-mlp"):
         with pytest.raises(ValueError, match="load_mlp"):
-            _load_model_any(MODEL_DIR / name, device="cpu")
+            load_model(MODEL_DIR / name, device="cpu")
     (tmp_path / "params.msgpack").write_bytes(
         (MODEL_DIR / "wp-1e-3-120" / "params.msgpack").read_bytes())
     (tmp_path / "meta.json").write_text('{"model": "NoSuchModel"}')
     with pytest.raises(ValueError, match="NoSuchModel"):
-        _load_model_any(tmp_path, device="cpu")
-    model, _ = _load_model_any(MODEL_DIR / "espcn_medium", device="cpu")
+        load_model(tmp_path, device="cpu")
+    model, _ = load_model(MODEL_DIR / "espcn_medium", device="cpu")
     assert type(model).__name__ == "ESPCN"
 
 
@@ -132,7 +131,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        _load_model_any(MODEL_DIR / "wp-1e-3-120")
+        load_model(MODEL_DIR / "wp-1e-3-120")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax(jax.device_get(jax_init_params(
             jax.random.key(0), scale=4)[1]))

@@ -22,7 +22,7 @@ from bicubic_interpolation_model_tpu.ops.pallas_interleave import (
 from bicubic_interpolation_model_tpu.ops.pallas_packed_tail import (
     packed_tail_fused as jax_packed_tail_fused)
 from bicubic_interpolation_model_tpu_torch.models.inference import (
-    _merged_map_mats, _tail_operands)
+    _merged_map_mats, build_tail_operands)
 from bicubic_interpolation_model_tpu_torch.ops.interleave import (
     interleave_planar_u32, interleave_planar_u32_reference, rgba32_to_hwc_np)
 from bicubic_interpolation_model_tpu_torch.ops.packed_tail import (
@@ -57,7 +57,7 @@ def _torch_args(p, y, lr):
           for k, v in p.items()}
     return (torch.as_tensor(y), torch.as_tensor(lr),
             tp["conv_out"]["kernel"], tp["conv_out"]["bias"],
-            *_tail_operands(tp, 4, "train"))
+            *build_tail_operands(tp, 4, "train"))
 
 
 def _jax_tail(p, y, lr, **kw):

@@ -21,8 +21,7 @@ from bicubic_interpolation_model_tpu.parallel.mesh import (
     make_mesh as jax_make_mesh)
 from bicubic_interpolation_model_tpu.parallel.spatial import (
     learned_resize_spatial_sharded as jax_learned_sharded)
-from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis import (
-    _load_model_any)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.models.inference import (
     super_resolve)
 from bicubic_interpolation_model_tpu_torch.ops.packed_tail import packed_tail
@@ -40,7 +39,7 @@ def jax_wp():
 
 @pytest.fixture(scope="module")
 def port_wp():
-    return _load_model_any(CKPT, device="cpu")
+    return load_model(CKPT, device="cpu")
 
 
 def _frame(seed, h=16, w=20, c=4):

@@ -26,8 +26,7 @@ import torch
 from bicubic_interpolation_model_tpu.evaluation.model_analysis import (
     _load_model_any as jax_load_model_any)
 from bicubic_interpolation_model_tpu.models import inference as J
-from bicubic_interpolation_model_tpu_torch.evaluation.model_analysis import (
-    _load_model_any)
+from bicubic_interpolation_model_tpu_torch.models.zoo import load_model
 from bicubic_interpolation_model_tpu_torch.models import inference as T
 from bicubic_interpolation_model_tpu_torch.models.layers import conv_nhwc
 from bicubic_interpolation_model_tpu_torch.ops.learned import (
@@ -35,6 +34,8 @@ from bicubic_interpolation_model_tpu_torch.ops.learned import (
 from bicubic_interpolation_model_tpu_torch.ops.packed_tail import (
     packed_tail_fused_reference)
 from bicubic_interpolation_model_tpu_torch.ops.planar import unpack_planar
+from bicubic_interpolation_model_tpu_torch.runtime.device import (
+    conv_precision)
 
 CKPT = pathlib.Path(__file__).resolve().parents[1] / "model" / "wp-1e-3-120"
 H, W = 40, 64
@@ -126,7 +127,7 @@ def frame(kind):
 
 @pytest.fixture(scope="module")
 def models():
-    return jax_load_model_any(str(CKPT)), _load_model_any(CKPT, device="cpu")
+    return jax_load_model_any(str(CKPT)), load_model(CKPT, device="cpu")
 
 
 @pytest.fixture(scope="module", params=["noise", "smooth"])
@@ -139,13 +140,13 @@ def case(request, models):
                                                "train", tail="xla"))
     exact = np.asarray(J.super_resolve(jmodel, jparams, img,
                                        convention="train", exact=True))
-    p = T._tree(params)
+    p = T.param_tree(params)
     lr = torch.as_tensor(img).float()[None]
-    with T._conv_precision(torch.float32):
+    with conv_precision(torch.float32):
         y = torch.relu(conv_nhwc(lr / 255.0, **p["conv_in"]))
         y = y + conv_nhwc(y, **p["conv_res"])
     args = (y, lr, p["conv_out"]["kernel"], p["conv_out"]["bias"],
-            *T._tail_operands(p, 4, "train"))
+            *T.build_tail_operands(p, 4, "train"))
     return {"graph": graph, "exact": exact, "args": args}
 
 
