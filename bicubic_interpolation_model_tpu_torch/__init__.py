@@ -35,12 +35,17 @@ own subpackage, lower layers, peers where noted, and the leaf
             banded-matrix resize behind ``impl="pallas"`` (CUDA kernel F,
             ``ops/banded``); adaptive bicubic (``ops/adaptive``: the plain
             graph and the dispatch; CUDA kernel E, ``ops/adaptive_fused``);
-            antialiased downsample
+            antialiased downsample; 3x3 convs on channel-major frames with
+            their bias and epilogue, 3xTF32 on the tensor cores
+            (``ops/conv3x3``, the port's own CUDA kernel: no TPU kernel
+            has its place)
 4 models    ``zoo`` (what a checkpoint is and which route it takes);
             WeightPredictor, learned SR inference; the direct-regression
-            models (ESPCN, ESPCNResidual, ESRGANLite, the published ESRGAN
-            RRDBNet, SRResNetTPU: cuDNN convs, no TPU kernel on their
-            path) and ``super_resolve_direct``; the MLP weight predictors
+            models (ESPCN, ESPCNResidual, ESRGANLite, SRResNetTPU: cuDNN
+            convs; the published ESRGAN RRDBNet: with grad off its
+            float32 card convs on ``ops/conv3x3``, but for the first and
+            last on cuDNN; no TPU kernel on their path) and
+            ``super_resolve_direct``; the MLP weight predictors
             (``mlp_predictor``); the TFJS importer
 4 data      the header-prefixed float32 tensor files (``binfmt``), DIV2K
             sample generation (``div2k``), the Y-less loader

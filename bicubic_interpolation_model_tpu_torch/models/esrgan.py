@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.conv3x3 import conv3x3_tc, conv3x3_tc_reference, serves
 from ..utils.profiling import span
 from .layers import Conv, TreeModule, conv, empty_module, numbered, \
     pixel_shuffle, tree_from_jax, upsample_nearest
@@ -132,14 +133,28 @@ def params_from_jax(tree: dict, *, device="cuda") -> dict:
     return out
 
 
-def _conv_cm(x, leaf, padding=1):
-    """3x3 conv on channel-major [B, C, H, W] with a ``{"kernel", "bias"}``
-    leaf: the HWIO kernel seen as OIHW, a view that is contiguous once
-    :meth:`RRDBNet.load_tree` stored it so, and cuDNN's NCHW kernel with no
-    layout transposes around it. ``padding=0`` on an input that carries
-    its own zero border."""
+def _conv_cm(x, leaf):
+    """conv_first and conv_last: cuDNN's 3x3 conv on channel-major [B, C,
+    H, W] with a ``{"kernel", "bias"}`` leaf, the HWIO kernel seen as OIHW
+    (a view that is contiguous once :meth:`RRDBNet.load_tree` stored it
+    so)."""
+    RRDBNet.cudnn_convs += 1
     return F.conv2d(x, leaf["kernel"].permute(3, 2, 0, 1), leaf["bias"],
-                    padding=padding)
+                    padding=1)
+
+
+def _conv_tc(x, leaf, padding=1, **epilogue):
+    """Every other conv: :func:`..ops.conv3x3.conv3x3_tc`, the conv, its
+    bias and ``epilogue`` in one kernel on the card, on frames it
+    :func:`..ops.conv3x3.serves`; other frames (another precision on the
+    card) take its plain version, cuDNN and PyTorch's epilogue."""
+    if not serves(x):
+        RRDBNet.cudnn_convs += 1
+        return conv3x3_tc_reference(x, leaf["kernel"], leaf["bias"],
+                                    padding=padding, **epilogue)
+    RRDBNet.conv3x3_convs += 1
+    return conv3x3_tc(x, leaf["kernel"], leaf["bias"], padding=padding,
+                      **epilogue)
 
 
 def _interior(t):
@@ -147,29 +162,28 @@ def _interior(t):
     return t[..., 1:-1, 1:-1]
 
 
-def _dense_block_buffered(p, buf, features, out=None):
+def _dense_block_buffered(p, buf, features, out=None, outer=None):
     """One dense block of one frame in its own buffer ``buf`` [1, features +
     4 growth, H + 2, W + 2] with a zero border, whose channels
     ``[:features]`` hold the block's input: conv i reads the zero-padded
-    prefix ``buf[:, :features + i growth]`` in place (contiguous at batch 1)
-    and its leaky ReLU writes the interior of the next ``growth`` channels;
-    conv_4's scaled residual ``x + 0.2 y`` is one add into ``out`` (the
-    interior of a slot of the next block's buffer), or over ``y``.
-
-    The border makes SAME padding part of the data: cuDNN (f32, NCHW, H100)
-    runs conv_4 (192 → 64 at 339x510) on the unpadded prefix with padding 1
-    as ``implicit_convolve_sgemm``, 1.75 ms, and on this border with
-    padding 0 as its ``xmma`` implicit GEMM, 1.06 ms."""
+    prefix ``buf[:, :features + i growth]`` in place (contiguous at batch 1,
+    padding 0) and writes its leaky ReLU into the interior of the next
+    ``growth`` channels; conv_4 writes its scaled residual ``x + 0.2 y``
+    into ``out`` (the interior of a slot of the next block's buffer), or a
+    new tensor, and with ``outer`` (the RRDB's input) the RRDB's residual
+    ``outer + 0.2 (x + 0.2 y)`` in its place. Each conv is one kernel
+    with its epilogue."""
     c = features
     for i in range(4):
-        y = _conv_cm(buf[:, :c], p[f"Conv_{i}"], padding=0)
-        torch.ops.aten.leaky_relu.out(
-            y, 0.2, out=_interior(buf[:, c:c + y.shape[1]]))
-        c += y.shape[1]
-    y = _conv_cm(buf, p["Conv_4"], padding=0)
+        leaf = p[f"Conv_{i}"]
+        g = leaf["kernel"].shape[3]
+        _conv_tc(buf[:, :c], leaf, padding=0, leaky=True,
+                 out=_interior(buf[:, c:c + g]))
+        c += g
     RRDBNet.buffered_blocks += 1
-    return torch.add(_interior(buf[:, :features]), y, alpha=0.2,
-                     out=y if out is None else out)
+    return _conv_tc(buf, p["Conv_4"], padding=0, out=out,
+                    residual=_interior(buf[:, :features]), alpha=0.2,
+                    outer=outer)
 
 
 def _trunk_buffered(p, fea, n_blocks, growth):
@@ -177,8 +191,8 @@ def _trunk_buffered(p, fea, n_blocks, growth):
     frame [1, F, H, W] in three zeroed buffers of F + 4 growth channels of
     [H + 2, W + 2], taken anew each call, whose border no write touches: an
     RRDB's input stays in its first buffer's slot ``[:, :F]`` until its
-    outer residual, which goes into the slot of the second (free again by
-    then), the next RRDB's first."""
+    last conv writes the outer residual into the slot of the second (free
+    again by then), the next RRDB's first."""
     _, f, h, w = fea.shape
     a, b, c = (fea.new_zeros((1, f + 4 * growth, h + 2, w + 2))
                for _ in range(3))
@@ -189,12 +203,11 @@ def _trunk_buffered(p, fea, n_blocks, growth):
                               out=_interior(b[:, :f]))
         _dense_block_buffered(r["DenseBlock_1"], b, f,
                               out=_interior(c[:, :f]))
-        hk = _dense_block_buffered(r["DenseBlock_2"], c, f)
-        torch.add(_interior(a[:, :f]), hk, alpha=0.2,
-                  out=_interior(b[:, :f]))
+        _dense_block_buffered(r["DenseBlock_2"], c, f,
+                              out=_interior(b[:, :f]),
+                              outer=_interior(a[:, :f]))
         a, b, c = b, c, a
-    y = _conv_cm(a[:, :f], p["Conv_1"], padding=0)
-    return torch.add(fea, y, out=y)
+    return _conv_tc(a[:, :f], p["Conv_1"], padding=0, residual=fea)
 
 
 class RRDBNet(TreeModule):
@@ -214,13 +227,19 @@ class RRDBNet(TreeModule):
 
     With grad off, each frame runs channel-major (NCHW) from conv_first to
     conv_last, every dense block in one zero-bordered buffer
-    (:func:`_trunk_buffered`); with grad on, the batch runs through the
-    NHWC dense blocks that concatenate (``out=`` writes do not
-    differentiate). The class counts the dense blocks of each frame served
-    either way: ``buffered_blocks`` and ``concatenated_blocks``."""
+    (:func:`_trunk_buffered`), every conv but conv_first and conv_last
+    with its bias, leaky ReLU or residuals through :func:`_conv_tc` (one
+    kernel on float32 card frames); with grad on, the batch runs through
+    the NHWC dense blocks that concatenate, on cuDNN (``out=`` writes do
+    not differentiate). The class counts, frame by frame, the dense blocks
+    served either way (``buffered_blocks``, ``concatenated_blocks``) and
+    the convs served by the kernel and by cuDNN (``conv3x3_convs``,
+    ``cudnn_convs``)."""
 
     buffered_blocks = 0
     concatenated_blocks = 0
+    conv3x3_convs = 0
+    cudnn_convs = 0
 
     def __init__(self, scale: int = 4, channels: int = 3, features: int = 64,
                  growth: int = 32, n_blocks: int = 23, *, generator=None):
@@ -245,7 +264,8 @@ class RRDBNet(TreeModule):
         """:meth:`TreeModule.load_tree`, each conv kernel first given OIHW
         storage under its HWIO shape (a permuted view), so that the
         channel-major forward hands cuDNN contiguous OIHW weights with no
-        copy a call."""
+        copy a call (the conv kernel's packed weights are built from
+        these at the first frame, :func:`..ops.conv3x3.packed_weights`)."""
         for m in self.modules():
             if isinstance(m, Conv):
                 k = m.kernel
@@ -261,6 +281,7 @@ class RRDBNet(TreeModule):
                     for i in range(x.shape[0])]
             return outs[0] if len(outs) == 1 else torch.cat(outs)
         RRDBNet.concatenated_blocks += 3 * self.n_blocks * x.shape[0]
+        RRDBNet.cudnn_convs += (15 * self.n_blocks + 6) * x.shape[0]
         with span("model.trunk"):
             fea = conv(x, p["Conv_0"])
             body = fea
@@ -280,10 +301,10 @@ class RRDBNet(TreeModule):
             fea = _trunk_buffered(p, fea, self.n_blocks, self.growth)
         with span("model.upsample"):
             for i in (2, 3):
-                fea = F.leaky_relu(_conv_cm(F.interpolate(
-                    fea, scale_factor=2, mode="nearest"), p[f"Conv_{i}"]),
-                    0.2, inplace=True)
-            fea = F.leaky_relu(_conv_cm(fea, p["Conv_4"]), 0.2, inplace=True)
+                fea = _conv_tc(F.interpolate(fea, scale_factor=2,
+                                             mode="nearest"),
+                               p[f"Conv_{i}"], leaky=True)
+            fea = _conv_tc(fea, p["Conv_4"], leaky=True)
             return _conv_cm(fea, p["Conv_5"]).permute(0, 2, 3, 1).contiguous()
 
 

@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
     "bim_packed_tail_fused": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -43,6 +45,9 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "bim_resize_banded": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bim_conv3x3_tc": [_P, _L, _L, _I, _I, _I, _P, _P, _I, _I, _I,
+                       _P, _L, _L, _I, _I, _I, _P, _L, _L, _F,
+                       _P, _L, _L, _F, _P],
 }
 # the probe instances of kernels D, E and G (bench/labs.py): each source's
 # second entry point, which launches a production kernel's template with

@@ -4,7 +4,8 @@
 
 Builds the hand-written CUDA kernels from
 ``bicubic_interpolation_model_tpu_torch/csrc``, holds each against its plain
-PyTorch version on the card, serves frames through the port's
+PyTorch version on the card (the 3x3 conv kernel of the published ESRGAN
+against float64, beside cuDNN f32, at the cell's conv shapes), serves frames through the port's
 ``ModelUpscaler`` (learned SR on the committed WeightPredictor checkpoints
 at 348x510 -> 4x RGBA), through its classical ``Upscaler`` (1080x1920 RGBA
 -> 4x, 2.5x and the forced phase route), through
@@ -387,6 +388,140 @@ def check_kernel_g(pt, dev, emit_fn):
                                  f"version: {res}")
         worst = max(worst, mx)
     return worst
+
+
+# the published ESRGAN's convs on the conv kernel: (C_in, C_out, rows,
+# columns, padding, epilogue) at the cell's 339x510 LR frame (every dense
+# block's five convs, on zero-bordered buffers: conv_4 with the block's
+# scaled residual, ``scaled``, and in an RRDB's last block with its outer
+# one too; conv_body with the trunk's residual, ``add``), conv_up1 on the
+# 2x grid and conv_up2 / conv_hr on the 4x grid
+CONV3X3_SHAPES = [(64, 32, 339, 510, 0, "leaky"),
+                  (96, 32, 339, 510, 0, "leaky"),
+                  (128, 32, 339, 510, 0, "leaky"),
+                  (160, 32, 339, 510, 0, "leaky"),
+                  (192, 64, 339, 510, 0, "outer"),
+                  (192, 64, 339, 510, 0, "scaled"),
+                  (64, 64, 339, 510, 0, "add"),
+                  (64, 64, 678, 1020, 1, "leaky"),
+                  (64, 64, 1356, 2040, 1, "leaky")]
+#: the kernel launches and the convs of each route in one served frame of
+#: the ESRGAN cell's configuration (RRDBNet's counters)
+ESRGAN_FRAME_LAUNCHES = 349
+ESRGAN_FRAME_CONVS = (349, 2)
+
+
+def check_conv3x3(dev, emit_fn):
+    """The 3x3 conv kernel (ops/conv3x3) at CONV3X3_SHAPES: its largest
+    error per output against float64, scaled by the output's sum of
+    magnitudes, at most 4x cuDNN f32's (TF32 off) on the same inputs; its
+    device ms beside its bound (FLOPs at 3xTF32's 165 TFLOP/s, or bytes
+    once), its plain version's (cuDNN f32 and PyTorch's epilogue) and
+    cuDNN's f32 conv with its bias alone (``library_ms``). Then one frame
+    of the ESRGAN cell's configuration served by ``ModelUpscaler``, its
+    launches counted from 0: ESRGAN_FRAME_LAUNCHES, the entry's
+    ``launches``. Returns the kernels line's entry (times at the 192 -> 64
+    conv with the outer residual) with every row."""
+    import torch.nn.functional as F
+    from bicubic_interpolation_model_tpu_torch.models.esrgan import RRDBNet
+    from bicubic_interpolation_model_tpu_torch.ops import conv3x3 as c3
+    from bicubic_interpolation_model_tpu_torch.runtime.device import (
+        conv_precision)
+    from bicubic_interpolation_model_tpu_torch.serving import ModelUpscaler
+    rows, worst = [], 0.0
+    for i, (cin, cout, h, w, pad, epi) in enumerate(CONV3X3_SHAPES):
+        rng = np.random.default_rng(2400 + i)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        hs, ws = h + 2 - 2 * pad, w + 2 - 2 * pad
+        x = torch.zeros((1, cin, hs, ws), device=dev)
+        x[..., 1 - pad:hs - 1 + pad, 1 - pad:ws - 1 + pad] = t(
+            rng.normal(0, 1, (1, cin, h, w)))
+        k = t(rng.normal(0, (2 / (9 * cin)) ** 0.5, (3, 3, cin, cout)))
+        b = t(rng.normal(0, 0.1, cout))
+        kw = {"padding": pad, "leaky": epi == "leaky"}
+        terms = {"leaky": 0, "add": 1, "scaled": 1, "outer": 2}[epi]
+        if terms:
+            kw.update(residual=t(rng.normal(0, 1, (1, cout, h, w))),
+                      alpha=1.0 if epi == "add" else 0.2)
+        if epi == "outer":
+            kw.update(outer=t(rng.normal(0, 1, (1, cout, h, w))))
+        got = c3.conv3x3_tc(x, k, b, **kw)
+        d = lambda v: v.double() if torch.is_tensor(v) else v
+        exact = c3.conv3x3_tc_reference(
+            d(x), d(k), d(b), **{n: d(v) for n, v in kw.items()})
+        mag = c3.conv3x3_tc_reference(
+            d(x).abs(), d(k).abs(), d(b).abs(),
+            **{n: (d(v).abs() if torch.is_tensor(v) else v)
+               for n, v in kw.items() if n != "leaky"})
+
+        def plain():
+            with conv_precision(torch.float32):
+                return c3.conv3x3_tc_reference(x, k, b, **kw)
+
+        koihw = k.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            with conv_precision(torch.float32):
+                return F.conv2d(x, koihw, b, padding=pad)
+
+        err = lambda y: float(((y.double() - exact).abs() / mag).max())
+        ours, lib_err = err(got), err(plain())
+        del exact, mag
+        flops = 2 * 9 * cin * cout * h * w
+        nbytes = 4 * (cin * h * w + cout * h * w * (1 + terms)
+                      + 9 * cin * cout + cout)
+        bound, by = ops_bound(nbytes, flops, 0, False)
+        row = {"phase": "conv3x3", "shape": [cin, cout, h, w], "pad": pad,
+               "epilogue": epi, "scaled_err": ours,
+               "cudnn_f32_scaled_err": lib_err,
+               "ms": device_ms(lambda: c3.conv3x3_tc(x, k, b, **kw),
+                               kernel="conv_implicit_gemm"),
+               "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+               "bound_ms": bound, "bound_by": by}
+        row["tflops"] = flops / row["ms"] / 1e9
+        emit_fn(row)
+        rows.append(row)
+        worst = max(worst, ours / lib_err)
+        if ours > 4 * lib_err:
+            raise AssertionError(f"conv3x3_tc off float64 by more than 4x "
+                                 f"cuDNN f32: {row}")
+    up = ModelUpscaler(str(ROOT / "benchmark" / "configs"
+                           / "esrgan-rrdbnet-x4"))
+    frame = np.random.default_rng(2409).integers(
+        0, 256, (339, 510, 3), dtype=np.uint8)
+    up(frame)
+    torch.cuda.synchronize()
+    c3.conv3x3_tc.launches = 0
+    convs = RRDBNet.conv3x3_convs, RRDBNet.cudnn_convs
+    t0 = time.perf_counter()
+    sr = up(frame)
+    torch.cuda.synchronize()
+    served = {"phase": "conv3x3_frame", "lr": [339, 510, 3],
+              "sr": list(sr.shape), "host_ms": 1e3 * (time.perf_counter()
+                                                      - t0),
+              "launches": c3.conv3x3_tc.launches,
+              "convs": [RRDBNet.conv3x3_convs - convs[0],
+                        RRDBNet.cudnn_convs - convs[1]]}
+    emit_fn(served)
+    del up
+    torch.cuda.empty_cache()
+    if (served["launches"] != ESRGAN_FRAME_LAUNCHES
+            or tuple(served["convs"]) != ESRGAN_FRAME_CONVS):
+        raise AssertionError(f"conv3x3_tc: an ESRGAN frame served other "
+                             f"than {ESRGAN_FRAME_LAUNCHES} launches and "
+                             f"{ESRGAN_FRAME_CONVS} convs: {served}")
+    head = next(r for r in rows if r["epilogue"] == "outer")
+    return {"name": "conv3x3_tc", "route": "cuda",
+            "source": "bicubic_interpolation_model_tpu_torch/csrc/"
+                      "conv3x3_tc.cu",
+            "replaces": "none: the JAX package leaves its convs to XLA",
+            "launches": served["launches"],
+            "max_err_over_cudnn_f32": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "rows": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                        "library_ms", "bound_ms")}
+                     for r in rows]}
 
 
 def check_kernel_e(adf, ilv, dev, emit_fn):
@@ -1853,6 +1988,7 @@ def main() -> int:
     e_err = check_kernel_e(adf, ilv, dev, emit)
     f_err = check_kernel_f(banded, mxu, dev, emit)
     g_err = check_kernel_g(pt, dev, emit)
+    conv_entry = check_conv3x3(dev, emit)
 
     # 5. main path: ModelUpscaler on the committed checkpoint
     up = ModelUpscaler(str(ROOT / "model" / "wp-1e-3-120"))
@@ -2853,7 +2989,8 @@ def main() -> int:
                      "pallas_resize.py:81",
          "launches": launches_ef["resize_banded"], "max_abs_err": f_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": cd_bound,
-         "bound_by": cd_by, "library_ms": lib_ms}] + probe_entries})
+         "bound_by": cd_by, "library_ms": lib_ms}, conv_entry]
+        + probe_entries})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -45,6 +45,8 @@ from bicubic_interpolation_model_tpu_torch.models.layers import (  # noqa: E402
     empty_module, tree_map)
 from bicubic_interpolation_model_tpu_torch.models.zoo import (  # noqa: E402
     MODEL_ZOO, load_model)
+from bicubic_interpolation_model_tpu_torch.ops.conv3x3 import (  # noqa: E402
+    conv3x3_tc)
 from bicubic_interpolation_model_tpu_torch.serving import (  # noqa: E402
     ModelUpscaler)
 
@@ -221,6 +223,66 @@ def test_counter_reads_every_dense_block_buffered_on_a_no_grad_frame(
     inference.super_resolve_direct(model, params, _frame(7, 9))
     buffered, concatenated = (a - b for a, b in zip(_blocks(), before))
     assert (buffered, concatenated) == (3 * SMALL["n_blocks"], 0)
+
+
+def _convs():
+    return esrgan.RRDBNet.conv3x3_convs, esrgan.RRDBNet.cudnn_convs
+
+
+def test_counters_read_the_convs_each_route_served(small_dir):
+    """With grad off every conv but conv_first and conv_last goes through
+    ``ops.conv3x3.conv3x3_tc`` (its plain version on the CPU): 15 a RRDB,
+    conv_body, conv_up1, conv_up2 and conv_hr; with grad on all of them
+    are cuDNN's, frame by frame."""
+    model, params = load_model(small_dir, device="cpu")
+    before = _convs()
+    inference.super_resolve_direct(model, params, _frame(7, 9))
+    kernel, cudnn = (a - b for a, b in zip(_convs(), before))
+    assert (kernel, cudnn) == (15 * SMALL["n_blocks"] + 4, 2)
+    x = torch.as_tensor(np.stack([_frame(5, 6, seed=s) for s in (1, 2)])
+                        ).float() / 255.0
+    before = _convs()
+    with torch.enable_grad():
+        model.apply(params, x)
+    kernel, cudnn = (a - b for a, b in zip(_convs(), before))
+    assert (kernel, cudnn) == (0, 2 * (15 * SMALL["n_blocks"] + 6))
+
+
+def test_frames_the_conv_kernel_does_not_take_stay_channel_major_on_cudnn(
+        small_dir):
+    """A frame that ``ops.conv3x3.serves`` refuses (here on the meta device,
+    shapes only; on the card any dtype but float32) still runs
+    channel-major with grad off, one buffer per dense block, every conv on
+    cuDNN with PyTorch's epilogue."""
+    model, params = load_model(small_dir, device="cpu")
+    meta = tree_map(lambda t: torch.empty(t.shape, device="meta"), params)
+    before = _blocks() + _convs()
+    with torch.no_grad():
+        y = model.apply(meta, torch.empty((1, 7, 9, 3), device="meta"))
+    assert y.shape == (1, 28, 36, 3)
+    after = _blocks() + _convs()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        3 * SMALL["n_blocks"], 0, 0, 15 * SMALL["n_blocks"] + 6)
+
+
+def test_cudnn_route_gives_the_kernel_routes_frame_bit_for_bit(
+        small_dir, monkeypatch):
+    """The channel-major forward's two routes for a conv, the kernel's
+    wrapper (its plain version on the CPU) and cuDNN with PyTorch's
+    epilogue, give the same float64 frame: the epilogues, residuals and
+    strided destinations are wired alike."""
+    model, params = load_model(small_dir, device="cpu")
+    p64 = tree_map(lambda t: t.double(), params)
+    x = torch.as_tensor(_frame(7, 9))[None].double() / 255.0
+    with torch.no_grad():
+        want = model.apply(p64, x)
+        monkeypatch.setattr(esrgan, "serves", lambda t: False)
+        before = _blocks() + _convs()
+        got = model.apply(p64, x)
+    after = _blocks() + _convs()
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        3 * SMALL["n_blocks"], 0, 0, 15 * SMALL["n_blocks"] + 6)
+    assert torch.equal(got, want)
 
 
 def test_grad_enabled_falls_back_to_the_concatenating_blocks(small_dir):
@@ -458,19 +520,46 @@ def test_served_cell_frame_within_one_of_float64_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_other_precisions_stay_channel_major_on_cudnn_on_card(card, dtype,
+                                                              small_dir):
+    """bf16 (the opt-in) and float64 (the reference) frames on the card
+    run channel-major with buffered dense blocks and every conv on cuDNN:
+    the kernel takes float32 alone and is not launched; float64 is within
+    one byte of the same function on the CPU."""
+    model, params = load_model(small_dir, device=card)
+    img = _frame(37, 53)
+    before = _blocks() + _convs() + (conv3x3_tc.launches,)
+    got = inference.super_resolve_direct(model, params, img,
+                                         compute_dtype=dtype).cpu().numpy()
+    after = _blocks() + _convs() + (conv3x3_tc.launches,)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        3 * SMALL["n_blocks"], 0, 0, 15 * SMALL["n_blocks"] + 6, 0)
+    assert got.shape == (148, 212, 3)
+    if dtype == torch.float64:
+        cpu_model, cpu_params = load_model(small_dir, device="cpu")
+        want = inference.super_resolve_direct(
+            cpu_model, cpu_params, img, compute_dtype=dtype).numpy()
+        assert np.abs(got.astype(int) - want).max() <= 1
+
+
+@pytest.mark.cuda
 def test_traced_cell_call_launches_no_layout_transpose_or_concatenation(
         card):
     up = ModelUpscaler(str(CELL_DIR))
     img = traffic.pool({"frame": [339, 510, 3], "pool": 1}, 2147483701)[0]
     up(img)
-    before = _blocks()
+    before, convs, launches = _blocks(), _convs(), conv3x3_tc.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         up(img)
         torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_blocks(), before)) == (3 * 23, 0)
+    assert tuple(a - b for a, b in zip(_convs(), convs)) == (349, 2)
+    assert conv3x3_tc.launches - launches == 349
     kernels = {e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA}
     assert any("fprop" in k or "conv" in k.lower() for k in kernels), kernels
+    assert any("conv_implicit_gemm_kernel" in k for k in kernels), kernels
     banned = ("nhwcToNchw", "nchwToNhwc", "CatArrayBatchedCopy")
     assert not [k for k in kernels if any(b in k for b in banned)]

@@ -1,8 +1,11 @@
-"""The seven CUDA kernels of the port (csrc/packed_tail.cu,
-csrc/packed_tail_map.cu, csrc/interleave.cu, csrc/resize_mxu.cu,
-csrc/resize_phase.cu, csrc/adaptive.cu, csrc/resize_banded.cu) against their
-plain PyTorch versions, the wrapper contract around them, and the sharded
-paths (parallel/) on a mesh that repeats the card.
+"""The seven CUDA kernels of the port that have a TPU counterpart
+(csrc/packed_tail.cu, csrc/packed_tail_map.cu, csrc/interleave.cu,
+csrc/resize_mxu.cu, csrc/resize_phase.cu, csrc/adaptive.cu,
+csrc/resize_banded.cu) against their plain PyTorch versions, the wrapper
+contract around them, and the sharded paths (parallel/) on a mesh that
+repeats the card. The eighth source, the 3x3 conv kernel
+(csrc/conv3x3_tc.cu), has its own tests in tests/test_torch_conv3x3.py;
+here it is listed with the sources and its instances' names are read.
 
 This file imports nothing of JAX, so it also runs on a machine with a card
 and no JAX: ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
@@ -172,16 +175,16 @@ def test_importing_the_port_builds_nothing():
 def test_kernel_sources_are_listed():
     from bicubic_interpolation_model_tpu_torch.runtime import build
     names = [p.name for p in build.sources()]
-    assert names == ["adaptive.cu", "interleave.cu", "packed_tail.cu",
-                     "packed_tail_map.cu", "resize_banded.cu",
-                     "resize_mxu.cu", "resize_phase.cu"]
+    assert names == ["adaptive.cu", "conv3x3_tc.cu", "interleave.cu",
+                     "packed_tail.cu", "packed_tail_map.cu",
+                     "resize_banded.cu", "resize_mxu.cu", "resize_phase.cu"]
     for name in names:
         text = (build.CSRC / name).read_text()
         assert "Replaces:" in text and "extern \"C\"" in text
     entry_points = " ".join((build.CSRC / n).read_text() for n in names)
     for symbol in build._SIGNATURES:
         assert f"int {symbol}(" in entry_points
-    assert len(build._SIGNATURES) == 7
+    assert len(build._SIGNATURES) == 8
 
 
 def test_tail_kernels_share_the_tensor_core_header():
@@ -276,6 +279,10 @@ MANGLED = [
     ("_Z19resize_phase_kernelILi4ELb1ELb1ELi2EEvPKvi",
      "resize_phase_kernel<4,1,1,2>"),
     ("_Z20resize_banded_kernelILi4ELb1EEvPKvi", "resize_banded_kernel<4,1>"),
+    ("_ZN46_GLOBAL__N__2bd9103e_13_conv3x3_tc_cu_cadc6cb025conv_implicit_"
+     "gemm_kernelILi32EEEvNS_4ArgsE", "conv_implicit_gemm_kernel<32>"),
+    ("_ZN46_GLOBAL__N__2bd9103e_13_conv3x3_tc_cu_cadc6cb025conv_implicit_"
+     "gemm_kernelILi64EEEvNS_4ArgsE", "conv_implicit_gemm_kernel<64>"),
     ("bim_resize_phase", "bim_resize_phase"),
     ("_Z15adaptive_kernelILi4", "_Z15adaptive_kernelILi4"),
 ]
