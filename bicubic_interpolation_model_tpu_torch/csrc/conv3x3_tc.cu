@@ -62,12 +62,20 @@
 #include <stdint.h>
 
 #include "tail_mma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using tail_mma::cp_async16;
 using tail_mma::cp_async_commit;
-using tail_mma::TF32_MASK;
+using wgmma_tf32::b_desc;
+using wgmma_tf32::cp_async_wait;
+using wgmma_tf32::keep;
+using wgmma_tf32::tf32_rn;
+using wgmma_tf32::wg_commit;
+using wgmma_tf32::wg_fence;
+using wgmma_tf32::wg_wait;
+using wgmma_tf32::Wgmma;
 
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int TH = 8, TW = 32;       // output rows (one a warp), columns
@@ -114,11 +122,6 @@ struct Args {
   float alpha, beta;
 };
 
-// x rounded to the nearest TF32 value, as f32 bits (ops/conv3x3.tf32_rn)
-__device__ __forceinline__ uint32_t tf32_rn(float x) {
-  return (__float_as_uint(x) + 0x1000u) & TF32_MASK;
-}
-
 // `bytes` (4 or 16; fewer are read, the rest zero-filled) global -> shared
 template <int SIZE>
 __device__ __forceinline__ void cp_async_z(float* dst, const float* src,
@@ -132,94 +135,6 @@ __device__ __forceinline__ void cp_async_z(float* dst, const float* src,
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                  "l"(src), "r"(bytes)
                  : "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// d (+)= a . B: wgmma m64nNk8 tf32, a the warp's A fragment, B at desc;
-// scale_d = 0 starts a fresh sum
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void run(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
-          "r"(scale_d));
-  }
-};
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
-               : "memory");
-}
-
-// registers an in-flight wgmma reads or writes stay where they are until
-// this point (after the wait that retires it)
-template <int M>
-__device__ __forceinline__ void keep(float (&r)[M]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void keep(uint32_t (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// the descriptor of one tap's B (hi or lo) in shared memory: K-major, no
-// swizzle, core matrices (8 output channels x 4 k, 128 bytes) 128 bytes
-// apart along K and 256 bytes apart along N
-__device__ __forceinline__ uint64_t b_desc(const float* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
 }
 
 // The halo positions a thread copies in every chunk: shared offset (-1:

@@ -33,11 +33,15 @@ states (:func:`load_swinir`).
 
 With grad off, a float32 frame on the card runs its attention through the
 kernel (:func:`..ops.window_attention.window_attention`, 36 launches a
-SwinIR-M frame); LayerNorm, the linears (cuBLAS, f32 in full), exact GELU
-and the residual adds are PyTorch's; conv_first, the RSTB convs,
-conv_after_body and conv_before_upsample are cuDNN's (f32 under the
-caller's ``conv_precision``). Other frames (grad on, another precision on
-the card) take the plain attention, which materialises the scores.
+SwinIR-M frame) and its linears through the linear kernel
+(:func:`..ops.linear_tc.linear_tc`, 144 launches), fc1's exact GELU and
+the residual adds after proj and fc2 in the linear kernel's epilogue;
+LayerNorm is PyTorch's; conv_first, the RSTB convs, conv_after_body and
+conv_before_upsample are cuDNN's (f32 under the caller's
+``conv_precision``). Other frames (grad on, another precision on the card,
+the CPU) take the plain versions: the attention that materialises the
+scores, and ``torch.addmm`` with f32 products in full and the epilogue in
+PyTorch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import linear_tc
 from ..ops.window_attention import (WINDOW, relative_bias, serves,
                                     window_attention,
                                     window_attention_reference)
@@ -109,9 +114,18 @@ class RSTB(TreeModule):
         self.conv = Conv(3, 3, embed, embed, generator=generator)
 
 
-def _linear(x, leaf):
-    """``x @ kernel + bias`` with a Dense leaf (kernel [in, out])."""
-    return torch.addmm(leaf["bias"], x, leaf["kernel"])
+def _linear(x, leaf, epilogue="none", residual=None, out=None):
+    """``epilogue(x @ kernel + bias)`` with a Dense leaf (kernel [in,
+    out]; ``ops.linear_tc``'s epilogues): the linear kernel for a float32
+    ``x`` on the card with grad off, else the plain version; each call
+    counted on :class:`SwinIR`. ``out`` may be ``residual``."""
+    if not torch.is_grad_enabled() and linear_tc.serves(x):
+        SwinIR.linear_kernel_calls += 1
+        return linear_tc.linear_tc(x, leaf["kernel"], leaf["bias"], epilogue,
+                                   residual=residual, out=out)
+    SwinIR.plain_linear_calls += 1
+    return linear_tc.linear_reference(x, leaf["kernel"], leaf["bias"],
+                                      epilogue, residual=residual, out=out)
 
 
 def _tokens(f):
@@ -132,12 +146,15 @@ class SwinIR(TreeModule):
     docstring). The class counts, frame by frame, the Swin blocks whose
     attention the kernel's wrapper served (``attention_kernel_blocks``:
     the kernel on the card, its plain version on the CPU) and those that
-    took the plain attention directly (``plain_attention_blocks``), and
-    the convs served by the conv kernel and by cuDNN (``conv3x3_convs``,
-    ``cudnn_convs``)."""
+    took the plain attention directly (``plain_attention_blocks``), the
+    linears launched on the linear kernel (``linear_kernel_calls``) and
+    those run plain (``plain_linear_calls``), and the convs served by the
+    conv kernel and by cuDNN (``conv3x3_convs``, ``cudnn_convs``)."""
 
     attention_kernel_blocks = 0
     plain_attention_blocks = 0
+    linear_kernel_calls = 0
+    plain_linear_calls = 0
     conv3x3_convs = 0
     cudnn_convs = 0
 
@@ -242,9 +259,11 @@ class SwinIR(TreeModule):
             SwinIR.plain_attention_blocks += 1
             a = window_attention_reference(qkv, bias, hp, wp, heads, shift,
                                            scale)
-        t = t + _linear(a, b["proj"])
-        y = F.gelu(_linear(layer_norm(t, b["norm2"]), b["fc1"]))
-        return t + _linear(y, b["fc2"])
+        t = _linear(a, b["proj"], "residual", t)
+        y = _linear(layer_norm(t, b["norm2"]), b["fc1"], "gelu")
+        # proj's output is the block's own: with grad off fc2 adds into it
+        out = None if torch.is_grad_enabled() else t
+        return _linear(y, b["fc2"], "residual", t, out)
 
 
 # -- published weights ------------------------------------------------------

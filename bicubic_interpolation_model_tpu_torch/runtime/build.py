@@ -49,6 +49,7 @@ _SIGNATURES = {
                        _P, _L, _L, _I, _I, _I, _P, _L, _L, _F,
                        _P, _L, _L, _F, _P],
     "bim_window_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "bim_linear_tc": [_P, _L, _P, _P, _I, _I, _I, _I, _P, _L, _P, _L, _I, _P],
 }
 # the probe instances of kernels D, E and G (bench/labs.py): each source's
 # second entry point, which launches a production kernel's template with

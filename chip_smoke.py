@@ -7,7 +7,10 @@ Builds the hand-written CUDA kernels from
 PyTorch version on the card (the 3x3 conv kernel of the published ESRGAN
 against float64, beside cuDNN f32, at the cell's conv shapes, and SwinIR-M's
 window attention kernel against float64 at its cell's grid, beside its plain
-version and SDPA, with one SwinIR frame served), serves frames through the port's
+version and SDPA, with one SwinIR frame served, and SwinIR-M's linear kernel
+against float64 at its four linears' shapes, beside its plain version and
+``torch.addmm`` with PyTorch's epilogue, with one more frame served), serves
+frames through the port's
 ``ModelUpscaler`` (learned SR on the committed WeightPredictor checkpoints
 at 348x510 -> 4x RGBA), through its classical ``Upscaler`` (1080x1920 RGBA
 -> 4x, 2.5x and the forced phase route), through
@@ -650,6 +653,136 @@ def check_window_attention(dev, emit_fn):
             "bound_ms": bound, "bound_by": by,
             "library_ms": head["library_ms"],
             "rows": [{k: r[k] for k in ("shift", "ms", "plain_ms",
+                                        "library_ms", "bound_ms")}
+                     for r in rows]}
+
+
+#: SwinIR-M's four linears of a Swin block on the cell's 344x512 tokens:
+#: (name, K, N, epilogue)
+LINEAR_TOKENS = 344 * 512
+LINEAR_SHAPES = [("qkv", 180, 540, "none"), ("proj", 180, 180, "residual"),
+                 ("fc1", 180, 360, "gelu"), ("fc2", 360, 180, "residual")]
+#: the linear kernel's largest error against float64, as a share of the
+#: largest output: 3xTF32 products leave ~1e-6, one TF32 pass ~1e-3
+LINEAR_TOL = 2e-5
+#: linear kernel launches (four a Swin block) in one served SwinIR-M frame
+SWINIR_FRAME_LINEARS = 144
+
+
+def check_linear_tc(dev, emit_fn):
+    """The linear kernel (ops/linear_tc) at LINEAR_SHAPES, each with the
+    epilogue SwinIR gives it: its largest error against float64, as a
+    share of the largest output, within LINEAR_TOL, beside cuBLAS f32's
+    (TF32 off) on the same inputs; its device ms beside its bound (FLOPs
+    at 3xTF32's 165 TFLOP/s, or bytes once), its plain version's
+    (``linear_reference``: ``torch.addmm`` under ``full_f32_matmul``, then
+    the epilogue) and ``library_ms``, ``torch.addmm`` f32 with PyTorch's
+    epilogue written out; the kernel faster than the library. Then one
+    frame of the SwinIR cell's configuration served by ``ModelUpscaler``,
+    the launches and the model's linear counters set to 0 just before:
+    SWINIR_FRAME_LINEARS launches, as many linears on the kernel and none
+    plain. Returns the kernels line's entry (times at qkv) with every
+    row."""
+    import torch.nn.functional as F
+    from bicubic_interpolation_model_tpu_torch.models.swinir import SwinIR
+    from bicubic_interpolation_model_tpu_torch.ops import linear_tc as lt
+    from bicubic_interpolation_model_tpu_torch.serving import ModelUpscaler
+    m = LINEAR_TOKENS
+    rows = []
+    for i, (name, k, n, epi) in enumerate(LINEAR_SHAPES):
+        rng = np.random.default_rng(2600 + i)
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        x = t(rng.normal(0, 1, (m, k)))
+        w = t(rng.normal(0, (2 / k) ** 0.5, (k, n)))
+        b = t(rng.normal(0, 0.1, n))
+        res = t(rng.normal(0, 1, (m, n))) if epi == "residual" else None
+        got = lt.linear_tc(x, w, b, epi, residual=res)
+        want = x.double() @ w.double() + b.double()
+        if epi == "gelu":
+            want = F.gelu(want)
+        elif res is not None:
+            want = res.double() + want
+        top = float(want.abs().max())
+        err = lambda y: float((y.double() - want).abs().max()) / top
+        ours = err(got)
+        plain = lambda: lt.linear_reference(x, w, b, epi, residual=res)
+        cublas = err(plain())
+        del got, want
+
+        def library():
+            prev = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                y = torch.addmm(b, x, w)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = prev
+            if epi == "gelu":
+                return F.gelu(y)
+            return y if res is None else res + y
+
+        flops = 2 * m * k * n
+        nbytes = 4 * (m * k + m * n * (2 if res is not None else 1)
+                      + k * n + n)
+        bound, by = ops_bound(nbytes, flops, 0, False)
+        row = {"phase": "linear_tc", "linear": name, "tokens": m, "k": k,
+               "n": n, "epilogue": epi, "col_tiles": -(-n // lt.TILE_COLUMNS),
+               "max_err_over_largest_output": ours,
+               "cublas_f32_err": cublas,
+               "ms": device_ms(lambda: lt.linear_tc(x, w, b, epi,
+                                                    residual=res),
+                               kernel="linear_xmma_gemm"),
+               "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+               "bound_ms": bound, "bound_by": by}
+        row["tflops"] = flops / row["ms"] / 1e9
+        del x, w, b, res
+        torch.cuda.empty_cache()
+        emit_fn(row)
+        rows.append(row)
+        if not ours <= LINEAR_TOL:
+            raise AssertionError(f"linear_tc off float64 by more than "
+                                 f"{LINEAR_TOL}: {row}")
+        if not row["ms"] < row["library_ms"]:
+            raise AssertionError(f"linear_tc not faster than torch.addmm "
+                                 f"f32 and PyTorch's epilogue: {row}")
+    up = ModelUpscaler(str(ROOT / "benchmark" / "configs"
+                           / "swinir-m-realsr-x4"))
+    frame = np.random.default_rng(2609).integers(
+        0, 256, (339, 510, 3), dtype=np.uint8)
+    up(frame)
+    torch.cuda.synchronize()
+    lt.linear_tc.launches = 0
+    SwinIR.linear_kernel_calls = SwinIR.plain_linear_calls = 0
+    t0 = time.perf_counter()
+    sr = up(frame)
+    torch.cuda.synchronize()
+    served = {"phase": "linear_tc_frame", "lr": [339, 510, 3],
+              "sr": list(sr.shape), "host_ms": 1e3 * (time.perf_counter()
+                                                      - t0),
+              "launches": lt.linear_tc.launches,
+              "linears": [SwinIR.linear_kernel_calls,
+                          SwinIR.plain_linear_calls]}
+    emit_fn(served)
+    del up
+    torch.cuda.empty_cache()
+    if (served["launches"] != SWINIR_FRAME_LINEARS
+            or served["linears"] != [SWINIR_FRAME_LINEARS, 0]
+            or served["sr"] != [1356, 2040, 3]):
+        raise AssertionError(f"linear_tc: a SwinIR frame served other than "
+                             f"{SWINIR_FRAME_LINEARS} launches and linears "
+                             f"on the kernel: {served}")
+    head = rows[0]
+    return {"name": "linear_tc", "route": "cuda",
+            "source": "bicubic_interpolation_model_tpu_torch/csrc/"
+                      "linear_tc.cu",
+            "replaces": "none: the JAX package leaves its matrix products "
+                        "to XLA",
+            "launches": served["launches"],
+            "max_err_over_largest_output": max(
+                r["max_err_over_largest_output"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "rows": [{k: r[k] for k in ("linear", "ms", "plain_ms",
                                         "library_ms", "bound_ms")}
                      for r in rows]}
 
@@ -2120,6 +2253,7 @@ def main() -> int:
     g_err = check_kernel_g(pt, dev, emit)
     conv_entry = check_conv3x3(dev, emit)
     attn_entry = check_window_attention(dev, emit)
+    linear_entry = check_linear_tc(dev, emit)
 
     # 5. main path: ModelUpscaler on the committed checkpoint
     up = ModelUpscaler(str(ROOT / "model" / "wp-1e-3-120"))
@@ -3120,7 +3254,8 @@ def main() -> int:
                      "pallas_resize.py:81",
          "launches": launches_ef["resize_banded"], "max_abs_err": f_err,
          "ms": f_ms, "plain_ms": f_plain_ms, "bound_ms": cd_bound,
-         "bound_by": cd_by, "library_ms": lib_ms}, conv_entry, attn_entry]
+         "bound_by": cd_by, "library_ms": lib_ms}, conv_entry, attn_entry,
+        linear_entry]
         + probe_entries})
     print(name_power, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,17 +6,20 @@ Prints one JSON line, ``breakdown``, with the card's name and power limit:
 ``N`` served cell frames (``ModelUpscaler`` on
 ``benchmark/configs/swinir-m-realsr-x4``, default 3) under
 ``torch.profiler`` after two untraced: device ms a frame by part: the
-window attention kernel, the linears (cuBLAS), the convs outside the HR
-stage (cuDNN: conv_first, the RSTBs', conv_after_body,
+window attention kernel, the linears (every GEMM kernel whose name holds
+neither ``conv`` nor ``implicit``: the linear kernel
+``linear_xmma_gemm_kernel``, with fc1's GELU and the block's residual adds
+in its epilogue, or cuBLAS's on the plain route), the convs outside the
+HR stage (cuDNN: conv_first, the RSTBs', conv_after_body,
 conv_before_upsample), the HR stage (every kernel launched inside the
 ``model.upsample`` span: the nearest upsamples, the conv kernel,
-conv_last), and the rest (LayerNorm, GELU, residual adds, padding, the
-mean, the crop, copies, rounding; its twelve largest kernels by name, and
-the linears' kernels by name);
+conv_last), and the rest (LayerNorm, padding, the mean, the crop, the
+RSTB and trunk residual adds, copies, rounding; its twelve largest kernels
+by name, and the linears' kernels by name);
 device busy and window ms a frame, the traced and untraced host ms a
-frame, and the peak memory of a frame. The kernel's own times beside its
-bound, its plain version and SDPA are ``chip_smoke.py``'s
-(``check_window_attention``).
+frame, and the peak memory of a frame. The kernels' own times beside their
+bounds, their plain versions and the library's are ``chip_smoke.py``'s
+(``check_window_attention``, ``check_linear_tc``).
 
 Without a card it exits 2. Imports nothing of JAX.
 """

@@ -176,7 +176,7 @@ def test_kernel_sources_are_listed():
     from bicubic_interpolation_model_tpu_torch.runtime import build
     names = [p.name for p in build.sources()]
     assert names == ["adaptive.cu", "conv3x3_tc.cu", "interleave.cu",
-                     "packed_tail.cu", "packed_tail_map.cu",
+                     "linear_tc.cu", "packed_tail.cu", "packed_tail_map.cu",
                      "resize_banded.cu", "resize_mxu.cu", "resize_phase.cu",
                      "window_attention.cu"]
     for name in names:
@@ -185,7 +185,7 @@ def test_kernel_sources_are_listed():
     entry_points = " ".join((build.CSRC / n).read_text() for n in names)
     for symbol in build._SIGNATURES:
         assert f"int {symbol}(" in entry_points
-    assert len(build._SIGNATURES) == 9
+    assert len(build._SIGNATURES) == 10
 
 
 def test_tail_kernels_share_the_tensor_core_header():
@@ -288,6 +288,8 @@ MANGLED = [
     ("_ZN52_GLOBAL__N__f6a510cc_19_window_attention_cu_73109d7423window_"
      "attention_kernelENS_4ArgsE", "window_attention_kernel"),
     ("_Z23window_attention_kernel4Args", "window_attention_kernel"),
+    ("_ZN45_GLOBAL__N__5e0c2a7b_12_linear_tc_cu_9f3d21c423linear_xmma_gemm_"
+     "kernelILi136ELi2EEEvNS_4ArgsE", "linear_xmma_gemm_kernel<136,2>"),
     ("bim_resize_phase", "bim_resize_phase"),
     ("_Z15adaptive_kernelILi4", "_Z15adaptive_kernelILi4"),
 ]

@@ -47,7 +47,7 @@ from bicubic_interpolation_model_tpu_torch.models.layers import (  # noqa: E402
 from bicubic_interpolation_model_tpu_torch.models.zoo import (  # noqa: E402
     MODEL_ZOO, load_model)
 from bicubic_interpolation_model_tpu_torch.ops import (  # noqa: E402
-    window_attention as wa)
+    linear_tc, window_attention as wa)
 from bicubic_interpolation_model_tpu_torch.serving import (  # noqa: E402
     ModelUpscaler)
 
@@ -365,6 +365,32 @@ def test_counters_read_each_route_a_frame(small):
     assert table.grad is not None and float(table.grad.abs().max()) > 0
 
 
+def _linear_counts():
+    s = swinir.SwinIR
+    return (s.linear_kernel_calls, s.plain_linear_calls,
+            linear_tc.linear_tc.launches)
+
+
+def test_linears_of_a_frame_run_plain_on_the_cpu(small):
+    """Four linears a block (qkv, proj with its residual, fc1 with GELU,
+    fc2 with its residual): 16 for the small model's 4 blocks, each on the
+    plain version on the CPU, with grad off and on; nothing launched."""
+    model, params, _ = small
+    blocks = sum(SMALL["depths"])
+    before = _linear_counts()
+    _port_bytes(model, params, _frame(*FRAME))
+    assert tuple(a - b for a, b in zip(_linear_counts(), before)) == (
+        0, 4 * blocks, 0)
+    x = torch.as_tensor(_frame(*FRAME))[None].float() / 255.0
+    before = _linear_counts()
+    with torch.enable_grad():
+        model.apply(params, x).square().mean().backward()
+    assert tuple(a - b for a, b in zip(_linear_counts(), before)) == (
+        0, 4 * blocks, 0)
+    fc2 = params["params"]["RSTB_0"]["Block_1"]["fc2"]["kernel"]
+    assert fc2.grad is not None and float(fc2.grad.abs().max()) > 0
+
+
 def test_blocks_of_a_frame_and_the_esrgan_counters_stay_apart(small):
     model, params, _ = small
     before = (esrgan.RRDBNet.conv3x3_convs, esrgan.RRDBNet.cudnn_convs)
@@ -593,22 +619,27 @@ def test_served_cell_frame_within_one_of_float64_on_card(card):
 @pytest.mark.cuda
 def test_traced_cell_frame_runs_every_block_on_the_kernel_on_card(card):
     """A cell frame: 36 launches of the attention kernel and no other
-    route, the HR stage's three convs on the conv kernel, ten cuDNN
-    convs."""
+    route, 144 of the linear kernel and no plain linear, the HR stage's
+    three convs on the conv kernel, ten cuDNN convs; no cuBLAS GEMM."""
     up = ModelUpscaler(str(CELL_DIR))
     img = _cell_frame(2147483701)
     up(img)
     before, launches = _counts(), wa.window_attention.launches
+    linears = _linear_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         up(img)
         torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_counts(), before)) == (36, 0, 3, 10)
     assert wa.window_attention.launches - launches == 36
+    assert tuple(a - b for a, b in zip(_linear_counts(), linears)) == (
+        144, 0, 144)
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("window_attention_kernel" in n for n in names) == 36
     assert sum("conv_implicit_gemm_kernel" in n for n in names) == 3
+    assert sum("linear_xmma_gemm_kernel" in n for n in names) == 144
+    assert sum("xmma_gemm" in n for n in names) == 144
 
 
 @pytest.mark.cuda
@@ -643,19 +674,23 @@ def test_kernel_block_writes_no_scores_on_card(card, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
 def test_other_precisions_take_the_plain_attention_on_card(card, small_dir,
                                                            dtype):
-    """float64 and bfloat16 frames on the card (the kernel takes float32
-    alone) run every block's attention plain, each block counted in
-    ``plain_attention_blocks`` and none launched; float64 within one byte
-    of the CPU's float64, bfloat16 within 4 u8 of it (bf16 keeps 8 bits
-    of mantissa; 2 u8 read on an H100)."""
+    """float64 and bfloat16 frames on the card (the kernels take float32
+    alone) run every block's attention and linears plain, each block
+    counted in ``plain_attention_blocks`` and each linear in
+    ``plain_linear_calls``, none launched; float64 within one byte of the
+    CPU's float64, bfloat16 within 4 u8 of it (bf16 keeps 8 bits of
+    mantissa; 2 u8 read on an H100)."""
     model, params = load_model(small_dir, device=card)
     img = _frame(*FRAME)
     before, launches = _counts(), wa.window_attention.launches
+    linears = _linear_counts()
     got = inference.super_resolve_direct(model, params, img,
                                          compute_dtype=dtype)
     assert tuple(a - b for a, b in zip(_counts(), before))[:2] == (
         0, sum(SMALL["depths"]))
     assert wa.window_attention.launches == launches
+    assert tuple(a - b for a, b in zip(_linear_counts(), linears)) == (
+        0, 4 * sum(SMALL["depths"]), 0)
     cpu_model, cpu_params = load_model(small_dir, device="cpu")
     want = inference.super_resolve_direct(cpu_model, cpu_params, img,
                                           compute_dtype=torch.float64)
